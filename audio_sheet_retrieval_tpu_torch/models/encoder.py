@@ -1,0 +1,112 @@
+"""Twin VGG-style convolutional encoder (eval mode), PyTorch.
+
+Architecture of reference:models/mutopia_ccal_cont.py:54-122, as in the JAX
+``models/encoder.py``: 4x [conv3x3-BN-ELU x2 + maxpool2], then
+conv1x1(dim_latent)-BN (identity), then a global mean. The checkpoints'
+convolutions carry no bias (Lasagne's ``batch_norm`` helper drops it); the
+folded BN gives each one.
+
+Layout is PyTorch's: NCHW activations, OIHW kernels. Lasagne kernels are
+already OIHW cross-correlation, so they load without a flip; the JAX
+package's HWIO trees are transposed by ``lasagne_import.params_from_numpy``.
+
+BN keeps Lasagne's running ``inv_std`` (1/sqrt(var+eps)), not a variance
+(so ``nn.BatchNorm2d`` does not fit). Eval BN is affine, so the loader folds
+it once into each conv's weight and bias (``fold_batch_norm``) and the
+forward is conv + bias, ELU, pool: no separate BN pass over the
+activations.
+
+Numerics: float32 with TF32 off (the JAX package pins HIGHEST precision for
+f32 convs). cuDNN runs f32 convolutions in TF32 unless told otherwise, so
+building an encoder switches TF32 off for convolutions and matmuls
+(``pin_full_f32``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+N_CONV_BLOCKS = 9  # 8x 3x3 + 1x 1x1
+
+
+def block_channels(num_filters: int, dim_latent: int) -> List[int]:
+    f = num_filters
+    return [f, f, 2 * f, 2 * f, 4 * f, 4 * f, 4 * f, 4 * f, dim_latent]
+
+
+def pin_full_f32() -> None:
+    """Full float32 for cuDNN convolutions and cuBLAS matmuls (no TF32)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def pools_after(i: int) -> bool:
+    """A 2x2 max-pool follows every second 3x3 block (blocks 1, 3, 5, 7)."""
+    return i < N_CONV_BLOCKS - 1 and i % 2 == 1
+
+
+def maxpool2(h: torch.Tensor) -> torch.Tensor:
+    # VALID with floor (92 -> 46 -> 23 -> 11 -> 5): ceil_mode=False
+    return F.max_pool2d(h, kernel_size=2, stride=2)
+
+
+class ConvBlock(nn.Module):
+    """conv with eval BN folded into its weight and bias (see
+    ``fold_batch_norm``) [-> ELU, applied by the encoder]."""
+
+    def __init__(self, c_in: int, c_out: int, ksize: int, *, device):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros((c_out, c_in, ksize, ksize),
+                                          device=device))
+        self.b = nn.Parameter(torch.zeros(c_out, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.w, self.b, padding=self.w.shape[-1] // 2)
+
+
+class Encoder(nn.Module):
+    """One view's encoder: [B, C, H, W] -> [B, dim_latent]."""
+
+    def __init__(self, in_channels: int, num_filters: int, dim_latent: int,
+                 *, device):
+        super().__init__()
+        pin_full_f32()
+        chans = block_channels(num_filters, dim_latent)
+        c_ins = [in_channels] + chans[:-1]
+        self.blocks = nn.ModuleList(
+            ConvBlock(ci, co, 1 if i == N_CONV_BLOCKS - 1 else 3,
+                      device=device)
+            for i, (ci, co) in enumerate(zip(c_ins, chans)))
+
+    def block(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Block ``i``: conv-BN, ELU on all but the last; no pooling."""
+        h = self.blocks[i](h)
+        return F.elu(h) if i < N_CONV_BLOCKS - 1 else h
+
+    def forward_from(self, h: torch.Tensor, first: int) -> torch.Tensor:
+        """Blocks ``first``..8 with their pools, then the global mean."""
+        for i in range(first, N_CONV_BLOCKS):
+            h = self.block(i, h)
+            if pools_after(i):
+                h = maxpool2(h)
+        return h.mean(dim=(2, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_from(x, 0)
+
+
+def fold_batch_norm(blk: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """One block's eval BN folded into its conv, in float32 on the host:
+    ((x*w) - mean)*s + beta == x*(w*s) + (beta - mean*s), s = inv_std*gamma
+    (exact algebra: BN is affine and comes before the ELU). ``w`` is OIHW.
+    -> {"w", "b"}, the tensors of a ``ConvBlock``."""
+    f32 = {k: np.asarray(blk[k], np.float32)
+           for k in ("w", "beta", "gamma", "mean", "inv_std")}
+    s = f32["inv_std"] * f32["gamma"]
+    return {"w": f32["w"] * s[:, None, None, None],
+            "b": f32["beta"] - f32["mean"] * s}

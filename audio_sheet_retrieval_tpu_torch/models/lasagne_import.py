@@ -1,0 +1,140 @@
+"""Checkpoint import: reference Theano/Lasagne dumps and JAX parameter trees.
+
+Lasagne layout (the JAX package's ``models/lasagne_import.py``): a flat list
+of 97 float32 arrays —
+
+  * view1: 9 conv blocks x (W[OIHW], beta, gamma, mean, inv_std) = 45
+  * view2: same = 45
+  * CCALayer: U(32,32), V(32,32), mean1(32), mean2(32), S12, S11, S22
+
+Lasagne kernels are OIHW cross-correlation (cuDNN, flip_filters=False), the
+layout ``F.conv2d`` takes, so they load as they are. The JAX package keeps
+HWIO kernels; ``params_from_numpy`` transposes them (3, 2, 0, 1). Either
+way each block's eval BN is folded into its conv at load
+(``encoder.fold_batch_norm``).
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Any, List, Sequence
+
+import numpy as np
+import torch
+
+from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models import encoder as enc
+from audio_sheet_retrieval_tpu_torch.models.cca_model import ModelParams
+from audio_sheet_retrieval_tpu_torch.ops.cca import CCAState
+
+ARRAYS_PER_BLOCK = 5
+BLOCKS_PER_VIEW = 9
+ARRAYS_PER_VIEW = ARRAYS_PER_BLOCK * BLOCKS_PER_VIEW  # 45
+N_CCA_ARRAYS = 7
+N_TOTAL = 2 * ARRAYS_PER_VIEW + N_CCA_ARRAYS  # 97
+_BLOCK_KEYS = ("w", "beta", "gamma", "mean", "inv_std")
+
+
+def load_lasagne_pickle(path: str) -> List[np.ndarray]:
+    """Load a py2 lasagne parameter pickle (latin1), or the repo's
+    raw-array .npz asset form of the same checkpoint."""
+    if path.endswith(".npz"):
+        from audio_sheet_retrieval_tpu import assets
+
+        return [np.asarray(a, dtype=np.float32)
+                for a in assets.load_raw_arrays(path)]
+    with open(path, "rb") as fp:
+        params = pickle.load(fp, encoding="latin1")
+    return lasagne_arrays(params, path)
+
+
+def lasagne_arrays(params: list, path: str = "<payload>") -> List[np.ndarray]:
+    """A lasagne dump's flat 97-array list. The legacy "redundant dump"
+    (list of per-layer lists, reference run_eval.py:76-79) contributes its
+    full-network list (l_v1latent spans both views + the CCA head)."""
+    if params and isinstance(params[0], (list, tuple)):
+        full = [p for p in params if len(p) == N_TOTAL]
+        if not full:
+            raise ValueError(
+                f"legacy dump in {path} has no {N_TOTAL}-array layer list "
+                f"(lengths: {[len(p) for p in params]})")
+        params = full[0]
+    return [np.asarray(a, dtype=np.float32) for a in params]
+
+
+def _fill_encoder(e: enc.Encoder, blocks: Sequence[dict]) -> enc.Encoder:
+    """Fold each numpy block's BN (w already OIHW) into the encoder's conv
+    weight and bias."""
+    with torch.no_grad():
+        for mod, blk in zip(e.blocks, blocks):
+            if tuple(np.shape(blk["w"])) != tuple(mod.w.shape) or any(
+                    np.shape(blk[key]) != tuple(mod.b.shape)
+                    for key in _BLOCK_KEYS[1:]):
+                raise ValueError(
+                    f"block shapes {[np.shape(blk[k]) for k in _BLOCK_KEYS]}"
+                    f" do not fit a conv of {tuple(mod.w.shape)}")
+            for key, src in enc.fold_batch_norm(blk).items():
+                getattr(mod, key).copy_(torch.from_numpy(src))
+    return e
+
+
+def _encoder_from_blocks(blocks: Sequence[dict], device) -> enc.Encoder:
+    w0, wl = blocks[0]["w"], blocks[-1]["w"]
+    e = enc.Encoder(w0.shape[1], w0.shape[0], wl.shape[0], device="cpu")
+    return _fill_encoder(e, blocks).to(device)
+
+
+def _cca_state(arrays: Sequence[Any], device) -> CCAState:
+    return CCAState(*(torch.tensor(np.asarray(a, np.float32), device=device)
+                      for a in arrays))
+
+
+def import_retrieval_params(arrays: Sequence[np.ndarray], cfg: ModelConfig,
+                            *, device) -> ModelParams:
+    """97 lasagne arrays -> ModelParams on ``device``."""
+    if len(arrays) != N_TOTAL:
+        raise ValueError(f"expected {N_TOTAL} arrays, got {len(arrays)} — "
+                         f"not a reference retrieval checkpoint")
+    n_filters = int(arrays[0].shape[0])  # OIHW
+    if n_filters != cfg.num_filters:
+        raise ValueError(
+            f"checkpoint first-conv has {n_filters} filters but model "
+            f"'{cfg.name}' expects {cfg.num_filters} — wrong model variant?")
+    d = cfg.dim_latent
+    u, v, m1, m2 = arrays[2 * ARRAYS_PER_VIEW:2 * ARRAYS_PER_VIEW + 4]
+    for name, a, shape in [("U", u, (d, d)), ("V", v, (d, d)),
+                           ("mean1", m1, (d,)), ("mean2", m2, (d,))]:
+        if a.shape != shape:
+            raise ValueError(f"CCA param {name} has shape {a.shape}, "
+                             f"want {shape}")
+
+    def view(flat):
+        return _encoder_from_blocks(
+            [dict(zip(_BLOCK_KEYS, flat[b * ARRAYS_PER_BLOCK:
+                                        (b + 1) * ARRAYS_PER_BLOCK]))
+             for b in range(BLOCKS_PER_VIEW)], device)
+
+    return ModelParams(view(arrays[:ARRAYS_PER_VIEW]),
+                       view(arrays[ARRAYS_PER_VIEW:2 * ARRAYS_PER_VIEW]),
+                       _cca_state(arrays[2 * ARRAYS_PER_VIEW:], device))
+
+
+def load_retrieval_checkpoint(path: str, cfg: ModelConfig,
+                              *, device) -> ModelParams:
+    return import_retrieval_params(load_lasagne_pickle(path), cfg,
+                                   device=device)
+
+
+def params_from_numpy(tree, *, device) -> ModelParams:
+    """A JAX-package parameter tree with numpy leaves (``ModelParams`` of
+    ``{"blocks": [{w[HWIO], beta, gamma, mean, inv_std}]}`` views and a
+    ``CCAState``; the JAX NamedTuples or this package's, e.g. from
+    ``utils.io.load_pytree``) -> this package's ModelParams on ``device``.
+    """
+    def view(v):
+        return _encoder_from_blocks(
+            [dict(blk, w=np.transpose(np.asarray(blk["w"]), (3, 2, 0, 1)))
+             for blk in v["blocks"]], device)
+
+    view1, view2, cca = tree
+    return ModelParams(view(view1), view(view2), _cca_state(cca, device))

@@ -1,0 +1,285 @@
+"""Window extraction over long inputs (strips, spectrograms) and the
+strip / spectrogram embedders of the serving path.
+
+A whole unrolled strip or spectrogram uploads once; the windows are cut on
+the device. The fullconv strip embedder runs the first conv block once over
+the whole strip and cuts block 2's inputs from its feature plane with kernel
+2 of the port, ``gather_feature_windows`` (``csrc/feature_windows.cu``;
+replaces the JAX package's ``gather_feature_windows_pallas``). Given a CPU
+plane the wrapper runs ``gather_feature_windows_plain``; given a CUDA plane
+it launches the kernel or raises.
+
+Window starts are host arrays and are checked on the host: an out-of-range
+start raises instead of reading out of bounds on the device.
+
+The JAX module's wire codecs (rle, pack4, rANS) are not ported yet
+(ROADMAP Queue 1 #8).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models import cca_model
+from audio_sheet_retrieval_tpu_torch.ops import _native
+from audio_sheet_retrieval_tpu_torch.train.engine import (
+    prepare_view1_device,
+    prepare_view2_device,
+)
+
+
+def linspace_starts(total: int, window: int, n: int) -> np.ndarray:
+    return np.linspace(0, total - window, num=n).astype(np.int32)
+
+
+def stride_starts(total: int, window: int, stride: int) -> np.ndarray:
+    return np.arange(0, total - window, stride, dtype=np.int32)
+
+
+def host_starts(starts, lo: int, hi: int) -> np.ndarray:
+    """Window starts as a host int64 array, each in [lo, hi]."""
+    s = (starts.cpu().numpy() if isinstance(starts, torch.Tensor)
+         else np.asarray(starts)).astype(np.int64).reshape(-1)
+    if s.size and (s.min() < lo or s.max() > hi):
+        raise ValueError(f"window starts must lie in [{lo}, {hi}]; got "
+                         f"[{s.min()}, {s.max()}]")
+    return s
+
+
+def gather_windows(seq: torch.Tensor, starts: torch.Tensor,
+                   window: int) -> torch.Tensor:
+    """[H, W] sequence + [N] starts (in range) -> [N, H, window]."""
+    cols = starts[:, None] + torch.arange(window, device=seq.device)
+    return seq[:, cols].permute(1, 0, 2)
+
+
+# --- kernel 2: feature-window gather -----------------------------------------
+
+
+def gather_feature_windows_plain(plane: torch.Tensor, starts: torch.Tensor,
+                                 n_cols: int) -> torch.Tensor:
+    """Plain version: [C, H4, Wq] plane + [N] starts -> [N, C, H4, n_cols]
+    from columns s, s+2, ..., s+2*(n_cols-1)."""
+    cols = starts.to(torch.int64)[:, None] + 2 * torch.arange(
+        n_cols, device=plane.device)
+    return plane[:, :, cols].permute(2, 0, 1, 3).contiguous()
+
+
+def gather_feature_windows(plane: torch.Tensor, starts: torch.Tensor,
+                           n_cols: int) -> torch.Tensor:
+    """Block-2 input windows of the fullconv plane: [C, H4, Wq] f32/bf16
+    plane + [N] int32 half-res starts -> [N, C, H4, n_cols] (NCHW, the
+    layout block 2's conv takes). Starts must lie in
+    [0, Wq - 2*(n_cols-1)); ``host_starts`` checks them."""
+    if plane.dim() != 3:
+        raise ValueError(f"plane must be [C, H4, Wq], got {tuple(plane.shape)}")
+    c, h4, wq = plane.shape
+    if plane.device.type == "cpu" and starts.device.type == "cpu":
+        return gather_feature_windows_plain(plane, starts, n_cols)
+    if plane.device.type != "cuda" or starts.device != plane.device:
+        raise ValueError(f"plane on {plane.device}, starts on "
+                         f"{starts.device}: both must be on one CUDA device")
+    if plane.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"plane must be float32 or bfloat16, got {plane.dtype}")
+    if starts.dtype != torch.int32 or starts.dim() != 1:
+        raise TypeError(f"starts must be a 1-D int32 tensor, got "
+                        f"{starts.dtype} {tuple(starts.shape)}")
+    if not (plane.is_contiguous() and starts.is_contiguous()):
+        raise ValueError("plane and starts must be contiguous")
+    if n_cols < 1:
+        raise ValueError(f"n_cols={n_cols} < 1")
+    n = starts.shape[0]
+    out = torch.empty((n, c, h4, n_cols), dtype=plane.dtype,
+                      device=plane.device)
+    if out.numel() == 0:  # N = 0: nothing to launch
+        return out
+    lib = _native.load("feature_windows")
+    err = lib.gather_feature_windows(
+        plane.data_ptr(), starts.data_ptr(), n, c, h4, wq, n_cols,
+        plane.element_size(), out.data_ptr(),
+        torch.cuda.current_stream(plane.device).cuda_stream)
+    _native.check(err, "gather_feature_windows")
+    gather_feature_windows.launches += 1
+    return out
+
+
+gather_feature_windows.launches = 0
+
+
+# --- strip embedders -----------------------------------------------------------
+
+
+def to_device(x, device, dtype=None) -> torch.Tensor:
+    """A host array or a tensor -> a tensor on ``device`` (``dtype``)."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    return t.to(device=device, dtype=dtype)
+
+
+def _clamp_row0(r0: int, height: int, crop_h: int) -> int:
+    # clamped into the image like the JAX package's dynamic_slice
+    return min(max(r0, 0), height - crop_h)
+
+
+def make_strip_embedder(params: cca_model.ModelParams, cfg: ModelConfig, *,
+                        center_crop: Optional[int] = None,
+                        fullconv: bool = False, device) -> Callable:
+    """Sheet strip -> window embeddings on ``device``.
+
+    Returns fn(strip_u8 [H, W], starts [N]) -> [N, dim] (a tensor on
+    ``device``). The strip is raw uint8 and uploads once; the vertical
+    centre crop (server semantics, audio_sheet_server.py:265-271), /255, the
+    half resize ('prepare') and encoder + CCA + L2 run on the device.
+    ``fullconv`` selects the strip-level first block (see
+    ``_strip_embed_core_fullconv``).
+    """
+    cca_model.check_numerics(cfg)
+    crop_h = center_crop or cfg.input_shape_1[1]
+    params = params.to(device)
+
+    def embed(strip_u8, starts) -> torch.Tensor:
+        strip = to_device(strip_u8, device)
+        if strip.dtype != torch.uint8:
+            raise TypeError(f"strip must be uint8, got {strip.dtype}")
+        return _strip_embed_core(params, strip, starts, cfg, crop_h,
+                                 fullconv)
+
+    return embed
+
+
+def _strip_embed_core(params, strip: torch.Tensor, starts, cfg: ModelConfig,
+                      crop_h: int, fullconv: bool = False) -> torch.Tensor:
+    """Centre crop, window gather, 'prepare', encoder + CCA + L2 — or the
+    fullconv path when ``fullconv`` and the model halves its input."""
+    if fullconv and cfg.sheet_downscale == 2:
+        return _strip_embed_core_fullconv(params, strip, starts, cfg, crop_h)
+    window = cfg.input_shape_1[2]
+    st = host_starts(starts, 0, strip.shape[1] - window)
+    r0 = _clamp_row0(strip.shape[0] // 2 - crop_h // 2, strip.shape[0],
+                     crop_h)
+    crop = strip[r0:r0 + crop_h].to(torch.float32)
+    wins = gather_windows(crop, torch.from_numpy(st).to(strip.device), window)
+    x = prepare_view1_device(wins[:, None], cfg)
+    return cca_model.embed_view1(params, x, cfg)
+
+
+@torch.no_grad()
+def _strip_embed_core_fullconv(params, strip: torch.Tensor, starts,
+                               cfg: ModelConfig,
+                               crop_h: int) -> torch.Tensor:
+    """Strip-level first-block serving path.
+
+    DB builds embed windows at 75% overlap, so the per-window encoder would
+    run block 1 about 4x on the same pixels. Convolutions are translation
+    invariant: conv-BN-ELU x2 run ONCE over the whole half-res strip; a
+    horizontally dense max-pool (2x2 window, stride (2, 1)) gives a plane
+    whose column j pools strip columns (j, j+1), so a window starting at
+    half-res column s takes columns s, s+2, ... of it as its block-2 input
+    (kernel 2). Blocks 2-9 and the CCA head run per window.
+
+    As in the JAX package, a window's own conv would zero-pad its border
+    while the strip conv sees the true neighbours: the 2 border columns of
+    the 50-column block-2 input differ, and odd starts round down one pixel.
+    How far that moves an embedding depends on the weights. With the small
+    random weights of the tests the two paths agree to cosine >= 0.999; on
+    the trained synthetic serving checkpoint they do not (cosine to the
+    per-window embedding below 0 for some windows, in this package and in
+    the JAX package alike; ``tests/test_torch_serving.py``), while piece
+    identification keeps its rank. This path reproduces the JAX package's
+    fullconv embeddings, not the per-window ones.
+    """
+    window = cfg.input_shape_1[2]
+    st = host_starts(starts, 0, strip.shape[1] - window)
+    plane = fullconv_plane(params, strip, crop_h)
+    starts_half = torch.from_numpy((st // 2).astype(np.int32)).to(
+        plane.device)
+    wins = gather_feature_windows(plane, starts_half, window // 4)
+    h1 = params.view1.forward_from(wins, 2)
+    return cca_model.length_norm((h1 - params.cca.mean1) @ params.cca.U)
+
+
+@torch.no_grad()
+def fullconv_plane(params, strip: torch.Tensor, crop_h: int) -> torch.Tensor:
+    """uint8 strip [H, W] (even H and W) -> the dense-pooled block-1
+    feature plane [C, crop_h/4, W/2 - 1] of its half-res centre crop."""
+    if strip.shape[0] % 2 or strip.shape[1] % 2:
+        raise ValueError(f"fullconv needs an even strip height and width "
+                         f"(a 2x2-mean half plane); got {tuple(strip.shape)}")
+    half = F.avg_pool2d(strip.to(torch.float32)[None, None] * (1.0 / 255.0),
+                        2)
+    # the full-res centre-crop row, halved (as the JAX package rounds it)
+    r0 = _clamp_row0((strip.shape[0] // 2 - crop_h // 2) // 2, half.shape[2],
+                     crop_h // 2)
+    half = half[:, :, r0:r0 + crop_h // 2]
+    view1 = params.view1
+    h = view1.block(1, view1.block(0, half))
+    return F.max_pool2d(h, kernel_size=2, stride=(2, 1))[0].contiguous()
+
+
+# --- spectrogram upload ---------------------------------------------------------
+
+
+def spec_quantize(spec: np.ndarray, bits: int = 8):
+    """Quantize a log-filterbank spectrogram for the host->device wire:
+    values ``log10(1+filtered) >= 0`` scaled by the per-payload max into
+    the integer range, rounded to nearest.
+
+    Returns (codes uint8|uint16 [bins, T], scale float32).
+    """
+    assert bits in (8, 16), bits
+    s = np.asarray(spec, np.float32)
+    scale = float(s.max()) if s.size else 0.0
+    if scale <= 0.0:
+        scale = 1.0
+    maxcode = (1 << bits) - 1
+    codes = np.round(s * (maxcode / scale))
+    codes = np.clip(codes, 0, maxcode)
+    return codes.astype(np.uint8 if bits == 8 else np.uint16), \
+        np.float32(scale)
+
+
+def spec_dequantize_device(codes: torch.Tensor, scale) -> torch.Tensor:
+    """Device-side inverse of spec_quantize -> float32 [bins, T].
+
+    uint16 is widened by hand (int16 view, int32, & 0xFFFF): PyTorch's
+    uint16 arithmetic is partial, on CUDA most of all."""
+    if codes.dtype == torch.uint8:
+        maxcode, wide = 255.0, codes.to(torch.float32)
+    elif codes.dtype == torch.uint16:
+        maxcode = 65535.0
+        wide = (codes.view(torch.int16).to(torch.int32) & 0xFFFF).to(
+            torch.float32)
+    else:
+        raise TypeError(f"codes must be uint8 or uint16, got {codes.dtype}")
+    # the factor in float32, as the JAX package computes it
+    factor = np.float32(scale) / np.float32(maxcode)
+    return wide * float(factor)
+
+
+def make_spec_embedder_q(params: cca_model.ModelParams, cfg: ModelConfig, *,
+                         device) -> Callable:
+    """Quantized-spectrogram embedder on ``device``: fn(codes u8|u16
+    [bins, T], scale, starts [N]) -> [N, dim] (dequantize + window gather +
+    encoder + CCA + L2)."""
+    params = params.to(device)
+
+    def embed(codes, scale, starts) -> torch.Tensor:
+        spec = spec_dequantize_device(to_device(codes, device), scale)
+        return embed_spec_windows(params, cfg, spec, starts)
+
+    return embed
+
+
+def embed_spec_windows(params: cca_model.ModelParams, cfg: ModelConfig,
+                       spec: torch.Tensor, starts) -> torch.Tensor:
+    """float32 spectrogram [bins, T] on the device + host excerpt starts
+    -> excerpt embeddings [N, dim] (window gather + encoder + CCA + L2)."""
+    window = cfg.input_shape_2[2]
+    st = host_starts(starts, 0, spec.shape[1] - window)
+    wins = gather_windows(spec, torch.from_numpy(st).to(spec.device), window)
+    return cca_model.embed_view2(params, prepare_view2_device(wins[:, None]),
+                                 cfg)

@@ -1,0 +1,87 @@
+"""Embedding service API.
+
+Parity with reference:retrieval_wrapper.py and the JAX package's
+``retrieval/wrapper.py``: ``compute_view_1/2`` embed raw sheet snippets /
+spectrogram excerpts in fixed-size batches (the encoders carry BN folded
+into their convolutions, the JAX package's serving fast path).
+
+Accepts every checkpoint format the JAX package reads: its native
+``asr-tpu-v1`` pytree pickles (read without jax, ``utils.io``), reference
+Theano/Lasagne .pkl dumps and the repo's raw-array .npz asset.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from audio_sheet_retrieval_tpu.data.iterators import batch_compute1
+from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models import cca_model, lasagne_import
+from audio_sheet_retrieval_tpu_torch.models.cca_model import ModelParams
+from audio_sheet_retrieval_tpu_torch.train.engine import (
+    prepare_view1_device,
+    prepare_view2_device,
+)
+from audio_sheet_retrieval_tpu_torch.utils import io as uio
+
+
+def load_any_checkpoint(path: str, cfg: ModelConfig, *,
+                        device) -> ModelParams:
+    """Load a native pytree checkpoint, a reference lasagne .pkl, or the
+    repo's raw-array .npz asset form of a lasagne checkpoint."""
+    if path.endswith(".npz"):
+        return lasagne_import.load_retrieval_checkpoint(path, cfg,
+                                                        device=device)
+    payload = uio.load_payload(path)
+    if uio.is_pytree_payload(payload):
+        return lasagne_import.params_from_numpy(
+            uio.pytree_from_payload(payload, path), device=device)
+    if isinstance(payload, list):
+        return lasagne_import.import_retrieval_params(
+            lasagne_import.lasagne_arrays(payload, path), cfg, device=device)
+    raise ValueError(f"unrecognized checkpoint format in {path}")
+
+
+class RetrievalWrapper:
+    """Cross-modality embedding wrapper (reference retrieval_wrapper.py:12-77)."""
+
+    def __init__(self, model_cfg: ModelConfig,
+                 param_file: Optional[str] = None,
+                 params: Optional[ModelParams] = None, batch_size: int = 100,
+                 *, device):
+        cca_model.check_numerics(model_cfg)
+        self.cfg = model_cfg
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        if params is None:
+            if param_file is None:
+                raise ValueError("need param_file or params")
+            params = load_any_checkpoint(param_file, model_cfg,
+                                         device=self.device)
+        self.params = params.to(self.device)
+
+    def _v1(self, x: torch.Tensor) -> torch.Tensor:
+        return cca_model.embed_view1(
+            self.params, prepare_view1_device(x, self.cfg), self.cfg)
+
+    def _v2(self, x: torch.Tensor) -> torch.Tensor:
+        return cca_model.embed_view2(self.params, prepare_view2_device(x),
+                                     self.cfg)
+
+    def _run(self, fn, batch: np.ndarray) -> np.ndarray:
+        return fn(torch.from_numpy(batch).to(self.device)).cpu().numpy()
+
+    def compute_view_1(self, X: np.ndarray) -> np.ndarray:
+        """Embed raw sheet snippets [N, 1, H, W] (uint8 range) -> [N, 32]."""
+        X = np.asarray(X, np.float32)
+        bs = min(self.batch_size, X.shape[0])
+        return batch_compute1(X, lambda e: self._run(self._v1, e), bs)
+
+    def compute_view_2(self, Z: np.ndarray) -> np.ndarray:
+        """Embed spectrogram excerpts [N, 1, bins, frames] -> [N, 32]."""
+        Z = np.asarray(Z, np.float32)
+        bs = min(self.batch_size, Z.shape[0])
+        return batch_compute1(Z, lambda e: self._run(self._v2, e), bs)

@@ -1,0 +1,68 @@
+"""Reader for the JAX package's native ``asr-tpu-v1`` checkpoint pickles.
+
+The JAX package pickles ``{"format", "version", "tree", "meta"}`` where
+``tree`` is a ``models.cca_model.ModelParams`` holding an ``ops.cca.CCAState``
+with plain numpy leaves. Both classes live in JAX-importing modules, so a
+plain ``pickle.load`` would import jax. The unpickler below maps those two
+names onto this package's NamedTuples and refuses every other class from the
+JAX package (or from jax itself) instead of importing it.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Any
+
+FORMAT_TAG = "asr-tpu-v1"
+SCHEMA_VERSION = 1
+
+_RENAMES = {
+    ("audio_sheet_retrieval_tpu.models.cca_model", "ModelParams"):
+        ("audio_sheet_retrieval_tpu_torch.models.cca_model", "ModelParams"),
+    ("audio_sheet_retrieval_tpu.ops.cca", "CCAState"):
+        ("audio_sheet_retrieval_tpu_torch.ops.cca", "CCAState"),
+}
+
+
+class _PortUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if (module, name) in _RENAMES:
+            module, name = _RENAMES[(module, name)]
+        elif (module.split(".")[0] in ("jax", "jaxlib")
+              or module.startswith("audio_sheet_retrieval_tpu.")):
+            raise pickle.UnpicklingError(
+                f"checkpoint holds {module}.{name}, which this package "
+                f"cannot load without jax")
+        return super().find_class(module, name)
+
+
+def load_payload(path: str) -> Any:
+    """Unpickle ``path`` with the JAX-free class mapping (latin1 for py2
+    lasagne dumps, which hold only lists of numpy arrays)."""
+    with open(path, "rb") as fp:
+        return _PortUnpickler(fp, encoding="latin1").load()
+
+
+def is_pytree_payload(payload: Any) -> bool:
+    return isinstance(payload, dict) and payload.get("format") == FORMAT_TAG
+
+
+def load_pytree(path: str) -> Any:
+    """-> the numpy tree of an ``asr-tpu-v1`` checkpoint (the port's
+    ``ModelParams`` / ``CCAState`` NamedTuples holding numpy arrays).
+    ``models.lasagne_import.params_from_numpy`` turns it into modules."""
+    return pytree_from_payload(load_payload(path), path)
+
+
+def pytree_from_payload(payload: Any, path: str) -> Any:
+    """The tree of an unpickled ``asr-tpu-v1`` payload, after the schema
+    version check."""
+    if not is_pytree_payload(payload):
+        raise ValueError(f"{path} is not an {FORMAT_TAG} checkpoint")
+    version = int(payload.get("version", 1))  # pre-"version" dumps are v1
+    if version > SCHEMA_VERSION:
+        raise ValueError(
+            f"{path} is schema v{version}, newer than this build's "
+            f"v{SCHEMA_VERSION} — upgrade audio_sheet_retrieval_tpu_torch "
+            f"to load it")
+    return payload["tree"]

@@ -1,0 +1,203 @@
+#!/usr/bin/env python
+"""Where the time goes on the PyTorch port's serving path, on one CUDA card.
+
+    python scripts/torch_profile_serving.py [--out PATH] [--queries N]
+
+The setting is chip_smoke.py's main path: the vendored synthetic-corpus
+serving checkpoint at full width (``mutopia_ccal_cont_rsz``, float32, TF32
+off), the 60-piece synthetic corpus with onset-aligned windows (about
+12,000 gallery rows), 100-excerpt piece-ID queries with 25 candidates.
+
+Three windows run under ``torch.profiler`` (CPU + CUDA activities), after a
+warm-up: the exact gallery build, the fullconv gallery build, and ``--queries``
+piece-ID queries. For each window it reports
+
+- ``wall_ms``: host clock from the window's start to a synchronise at its
+  end (the profiler's own host overhead included);
+- ``device_busy_ms``: the union of the intervals of every device activity
+  (kernels, copies, memsets) in the trace. Only device activities count:
+  the CPU-side operator entries that carry the same kernels' time are left
+  out, so no kernel is counted twice;
+- ``busy_share`` = device_busy_ms / wall_ms;
+- ``top``: device time summed by activity name, largest first.
+
+Then, without the profiler, the host-clock time of each stage of one query
+(host quantization, upload, excerpt embedding, top-k, vote + download),
+synchronised between stages, and the unprofiled query p50 (upload to
+downloaded counts, the ``p50_ms`` of ``retrieval.accuracy``).
+
+Each window prints one JSON line; the whole result goes to ``--out``
+(default ``build/profile/profile_serving.json``). Without a CUDA card the
+script exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def device_summary(prof, wall_ms: float, top_n: int = 12) -> dict:
+    """Busy time (union of device-activity intervals) and device time by
+    activity name, from a finished profiler."""
+    spans, by_name = [], collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end  # microseconds
+        spans.append((start, end))
+        by_name[e.name][0] += (end - start) / 1000.0
+        by_name[e.name][1] += 1
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity")
+    spans.sort()
+    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1000.0,
+            "busy_share": busy_us / 1000.0 / wall_ms,
+            "n_device_activities": len(spans),
+            "top": [{"name": n[:90], "device_ms": ms, "count": c}
+                    for n, (ms, c) in top]}
+
+
+def profiled(fn) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    return device_summary(prof, wall_ms)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=os.path.join(
+        REPO, "build", "profile", "profile_serving.json"))
+    ap.add_argument("--queries", type=int, default=60)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false; this profile "
+                         "runs only on a CUDA card")
+
+    from audio_sheet_retrieval_tpu import assets
+    from audio_sheet_retrieval_tpu.data import synthetic
+    from audio_sheet_retrieval_tpu.models.configs import get_model_config
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+    from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
+        embed_spec_excerpts,
+        make_fused_piece_query_spec,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        load_any_checkpoint,
+    )
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    cfg = get_model_config("mutopia_ccal_cont_rsz")
+    params = load_any_checkpoint(assets.asset_path("synth_serving_ckpt.pkl"),
+                                 cfg, device=dev)
+    images, specs, o2cs = synthetic.make_piece_list(
+        26, 60, n_performances=1, n_onsets=200)
+    specs = [sp[0] for sp in specs]
+    coords = [oc[0][:, 1] for oc in o2cs]
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    def build(fullconv):
+        return accuracy.build_piece_gallery(params, cfg, images,
+                                            coords=coords, fullconv=fullconv,
+                                            device=dev)
+
+    for fullconv in (False, True):  # warm-up: cuDNN plans, kernel builds
+        build(fullconv)
+    gallery = build(False)
+    payloads = list(accuracy.query_payloads(cfg, specs, 1, 100, 16))
+    query = make_fused_piece_query_spec(params, cfg, gallery, len(images),
+                                        n_candidates=25)
+    jobs = [(payload, scale, starts[0])
+            for payload, scale, starts in payloads][:args.queries]
+    for payload, scale, st in jobs[:5]:
+        query(payload, scale, st).cpu()
+
+    result["build_exact"] = profiled(lambda: build(False))
+    result["build_fullconv"] = profiled(lambda: build(True))
+
+    def run_queries():
+        for payload, scale, st in jobs:
+            query(payload, scale, st).cpu()
+
+    q = profiled(run_queries)
+    q["per_query_wall_ms"] = q["wall_ms"] / len(jobs)
+    q["per_query_device_busy_ms"] = q["device_busy_ms"] / len(jobs)
+    result["queries"] = q
+    for name in ("build_exact", "build_fullconv", "queries"):
+        print(name, json.dumps(result[name]), flush=True)
+
+    # per-stage host clock of one query, synchronised between stages
+    stages = collections.defaultdict(list)
+    p50 = []
+    for spec, (payload, scale, st) in zip(specs, jobs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes_u16, scale_h = win.spec_quantize(spec, bits=16)
+        t1 = time.perf_counter()
+        dev_codes = torch.from_numpy(codes_u16).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        emb = embed_spec_excerpts(params, cfg, dev_codes, scale_h, st, True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        _, idx = topk_gallery(emb.contiguous(), gallery.gallery_n, 25)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        torch.bincount(gallery.ids_device[idx].reshape(-1),
+                       minlength=len(images))[:len(images)].cpu()
+        t5 = time.perf_counter()
+        for key, a, b in (("quantize_host", t0, t1), ("upload", t1, t2),
+                          ("embed", t2, t3), ("topk", t3, t4),
+                          ("vote_download", t4, t5)):
+            stages[key].append((b - a) * 1000.0)
+        t6 = time.perf_counter()
+        query(payload, scale, st).cpu()
+        p50.append((time.perf_counter() - t6) * 1000.0)
+    result["query_stages_p50_ms"] = {k: float(np.median(v))
+                                     for k, v in stages.items()}
+    result["query_p50_ms_unprofiled"] = float(np.median(p50))
+    print("query_stages", json.dumps(result["query_stages_p50_ms"]),
+          "query_p50_ms_unprofiled", result["query_p50_ms_unprofiled"])
+    print(smi)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fp:
+        json.dump(result, fp, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
