@@ -2,17 +2,18 @@
 
 CLI parity with reference:audio_sheet_server.py:566-687 and the JAX
 package's ``cli/audio_sheet_server.py``: build or load the sheet-snippet DB
-over the test pieces, then either identify a single query performance or
-run the full per-piece evaluation with rank bookkeeping (and a
-retrieval_<tag>_A2S.yaml dump).
+over the test pieces, then either identify a single query performance and
+stream it (the device stream by default, the host loop with
+``--host_stream``) or run the full per-piece evaluation with rank
+bookkeeping (and a retrieval_<tag>_A2S.yaml dump).
 
-Ported so far: ``--data synthetic`` (the stored spectrograms act as the
-performance recordings), ``--full_eval`` (with ``--fused``: the
-spectrogram-upload device query) and the single-piece ``detect_score``
-demo. Not yet: the npz and MSMD sources (they need the audio front end,
-ROADMAP Queue 1 #2) and streaming (Queue 1 #5), which raise
-``NotImplementedError``. yaml is imported only by the options that read or
-write yaml files.
+Sources: ``--data synthetic`` and ``--data npz:<dir>`` (one
+``<piece>.npz`` per test piece of ``--train_split``, as
+``cli/export_msmd_npz.py`` writes them); the stored spectrograms act as
+the performance recordings. ``--data mutopia`` raises
+``NotImplementedError``: it needs the ``msmd`` package, and the JAX
+package's MSMD loader computes missing spectrograms with the JAX DSP.
+yaml is imported only by the options that read or write yaml files.
 """
 
 from __future__ import annotations
@@ -30,25 +31,112 @@ from audio_sheet_retrieval_tpu_torch.utils.logging import BColors
 
 col = BColors()
 
-STREAMING_TODO = ("streaming retrieval is not ported yet (ROADMAP Queue 1 "
-                  "#5: retrieval/streaming.py, AudioSheetServer.run)")
 
-
-def make_piece_source(data: str, n_test: int):
+def make_piece_source(data: str, split: dict):
     """-> (test piece names, loader(name) -> (image, specs, o2c_maps),
     query_spec(name) -> full spectrogram)."""
     if data == "synthetic":
         from audio_sheet_retrieval_tpu.data import synthetic
 
-        names = ["synthetic_%03d" % i for i in range(n_test)]
+        names = ["synthetic_%03d" % i for i in range(len(split["test"]))]
         images, specs, o2cs = synthetic.make_piece_list(
             25, len(names), n_onsets=60)
         table = {n: (images[i], specs[i], o2cs[i])
                  for i, n in enumerate(names)}
         return (names, lambda n: table[n], lambda n: table[n][1][0])
-    raise NotImplementedError(
-        f"--data {data}: only 'synthetic' is ported; the npz and MSMD "
-        f"sources need the audio front end (ROADMAP Queue 1 #2)")
+    if data.startswith("npz:"):
+        from audio_sheet_retrieval_tpu.data.msmd import load_piece_npz
+
+        npz_dir = data[4:]
+        names = split["test"]
+
+        def loader(n):
+            return load_piece_npz(os.path.join(npz_dir, n + ".npz"))
+
+        return names, loader, lambda n: loader(n)[1][0]
+    if data == "mutopia":
+        raise NotImplementedError(
+            "--data mutopia is not ported (ROADMAP Queue 1): it needs the "
+            "msmd package, and the shared MSMD loader falls back to the JAX "
+            "DSP; export the pieces with cli/export_msmd_npz.py and pass "
+            "--data npz:<dir>")
+    raise ValueError(f"unknown data source {data}")
+
+
+def load_split(train_split, n_test_pieces):
+    """{"test": piece names}: the yaml split, or n placeholders (the
+    synthetic source only counts them)."""
+    if train_split:
+        from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
+
+        return cfg_mod.load_split(train_split)
+    return {"test": ["x"] * (n_test_pieces or 8)}
+
+
+def experiment_tag(args):
+    """`<split-stem>_<config-stem>`, or None without a split or config."""
+    if not (args.train_split or args.config):
+        return None
+    from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
+
+    return cfg_mod.compile_tag(args.train_split, args.config)
+
+
+def param_file_for(args, model_cfg, tag):
+    """--param_file, or the experiment's params file under --exp_root."""
+    if args.param_file is not None:
+        return args.param_file
+    from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
+
+    exp_name = model_cfg.name + ("_est_UV" if args.estimate_UV else "")
+    exp_root = args.exp_root or cfg_mod.EXP_ROOT
+    name = "params.pkl" if tag is None else "params_%s.pkl" % tag
+    return os.path.join(exp_root, exp_name, name)
+
+
+def evaluate(pieces, detect, what: str, dump_file: str, dump_results: bool,
+             suffix: str):
+    """Rank of each piece's own entry under ``detect(name) -> (ranking,
+    vote shares)`` (a piece missing from the ranking gets its length), a
+    per-position summary, and with ``dump_results`` the rank list as
+    ``retrieval_<tag>_<suffix>`` beside the params file. -> the ranks."""
+    print(col.print_colored("\nRunning full evaluation:", col.UNDERLINE))
+    ranks = []
+    for tp in pieces:
+        ret_result, ret_votes = detect(tp)
+        if tp in ret_result:
+            rank = ret_result.index(tp) + 1
+            ratio = ret_votes[ret_result.index(tp)]
+        else:
+            rank = len(ret_result)
+            ratio = 0.0
+        ranks.append(rank)
+        color = col.OKBLUE if rank == 1 else col.WARNING
+        print(col.print_colored("rank: %02d (%.2f) " % (rank, ratio),
+                                color) + tp)
+
+    ranks = np.asarray(ranks)
+    for r in range(1, len(ranks) + 1):
+        n_correct = int(np.sum(ranks == r))
+        if n_correct > 0:
+            print(col.print_colored(
+                "%d of %d retrieved %s ranked at position %d."
+                % (n_correct, len(ranks), what, r), col.WARNING))
+
+    if dump_results:
+        import yaml
+
+        from audio_sheet_retrieval_tpu import config as cfg_mod
+
+        res_file = cfg_mod.derive_result_path(dump_file, "retrieval_",
+                                              suffix)
+        os.makedirs(os.path.dirname(os.path.abspath(res_file)),
+                    exist_ok=True)
+        with open(res_file, "w") as fp:
+            yaml.safe_dump([int(r) for r in ranks], fp,
+                           default_flow_style=False)
+        print("dumped results to", res_file)
+    return list(ranks)
 
 
 def build_arg_parser():
@@ -66,6 +154,7 @@ def build_arg_parser():
                              "upload device query (detect_score_from_spec, "
                              "u16 wire) instead of detect_score — same "
                              "rankings")
+    parser.add_argument("--running_frames", type=int, default=100)
     parser.add_argument("--n_candidates", type=int, default=25)
     parser.add_argument("--train_split", type=str, default=None)
     parser.add_argument("--config", type=str, default=None)
@@ -79,9 +168,9 @@ def build_arg_parser():
     parser.add_argument("--db_file", type=str, default="sheet_db_file.pkl")
     parser.add_argument("--n_test_pieces", type=int, default=None,
                         help="synthetic source: number of test pieces")
-    parser.add_argument("--no_stream", action="store_true",
-                        help="single-piece demo: run detect_score only, "
-                             "without the streaming stage (not ported yet)")
+    parser.add_argument("--host_stream", action="store_true",
+                        help="stream through the reference-style host loop "
+                             "instead of the device stream")
     return parser
 
 
@@ -91,25 +180,11 @@ def main(argv=None):
     if args.conv_precision is not None:
         model_cfg = dataclasses.replace(model_cfg,
                                         conv_precision=args.conv_precision)
-    if args.train_split or args.config or args.dump_results:
-        from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
-    tag = (cfg_mod.compile_tag(args.train_split, args.config)
-           if args.train_split or args.config else None)
+    tag = experiment_tag(args)
     print("Experimental Tag:", tag)
 
-    if args.train_split:
-        n_test = len(cfg_mod.load_split(args.train_split)["test"])
-    else:
-        n_test = args.n_test_pieces or 8
-
-    exp_name = model_cfg.name + ("_est_UV" if args.estimate_UV else "")
-    dump_file = args.param_file
-    if dump_file is None:
-        from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
-
-        exp_root = args.exp_root or cfg_mod.EXP_ROOT
-        name = "params.pkl" if tag is None else "params_%s.pkl" % tag
-        dump_file = os.path.join(exp_root, exp_name, name)
+    split = load_split(args.train_split, args.n_test_pieces)
+    dump_file = param_file_for(args, model_cfg, tag)
 
     srv = AudioSheetServer(
         sheet_shape=(model_cfg.input_shape_1[1], model_cfg.input_shape_1[2]),
@@ -118,7 +193,7 @@ def main(argv=None):
     srv.initialize_embedding_network(
         RetrievalWrapper(model_cfg, param_file=dump_file, device=args.device))
 
-    te_pieces, loader, query_spec = make_piece_source(args.data, n_test)
+    te_pieces, loader, query_spec = make_piece_source(args.data, split)
 
     if args.init_sheet_db or not os.path.exists(args.db_file):
         srv.initialize_sheet_db(te_pieces, loader)
@@ -127,60 +202,34 @@ def main(argv=None):
         srv.load_sheet_db_file(args.db_file)
 
     if args.full_eval:
-        print(col.print_colored("\nRunning full evaluation:", col.UNDERLINE))
-        ranks = []
-        for tp in te_pieces:
-            spec = query_spec(tp)
-            if args.fused:
-                ret_result, ret_votes = srv.detect_score_from_spec(
-                    spec, top_k=len(te_pieces),
+        def detect(tp):
+            if args.fused:  # u16 wire, same rankings
+                return srv.detect_score_from_spec(
+                    query_spec(tp), top_k=len(te_pieces),
                     n_candidates=args.n_candidates, quantize=16)
-            else:
-                ret_result, ret_votes = srv.detect_score(
-                    spec, top_k=len(te_pieces),
-                    n_candidates=args.n_candidates)
-            if tp in ret_result:
-                rank = ret_result.index(tp) + 1
-                ratio = ret_votes[ret_result.index(tp)]
-            else:
-                rank = len(ret_result)
-                ratio = 0.0
-            ranks.append(rank)
-            color = col.OKBLUE if rank == 1 else col.WARNING
-            print(col.print_colored("rank: %02d (%.2f) " % (rank, ratio),
-                                    color) + tp)
+            return srv.detect_score(query_spec(tp), top_k=len(te_pieces),
+                                    n_candidates=args.n_candidates)
 
-        ranks = np.asarray(ranks)
-        for r in range(1, len(ranks) + 1):
-            n_correct = int(np.sum(ranks == r))
-            if n_correct > 0:
-                print(col.print_colored(
-                    "%d of %d retrieved scores ranked at position %d."
-                    % (n_correct, len(ranks), r), col.WARNING))
+        return evaluate(te_pieces, detect, "scores", dump_file,
+                        args.dump_results, "A2S.yaml")
 
-        if args.dump_results:
-            import yaml
-
-            res_file = cfg_mod.derive_result_path(
-                dump_file, "retrieval_", "A2S.yaml")
-            os.makedirs(os.path.dirname(os.path.abspath(res_file)),
-                        exist_ok=True)
-            with open(res_file, "w") as fp:
-                yaml.safe_dump([int(r) for r in ranks], fp,
-                               default_flow_style=False)
-            print("dumped results to", res_file)
-        return list(ranks)
-
-    # single-piece demo (+ streaming, not ported yet)
+    # single-piece demo + streaming
     tp = te_pieces[0]
     spec = query_spec(tp)
     print(col.print_colored("\nQuery piece: %s" % tp, color=col.OKBLUE))
-    srv.detect_score(spec, top_k=min(7, len(te_pieces)),
-                     n_candidates=args.n_candidates, verbose=True)
-    if not args.no_stream:
-        raise NotImplementedError(
-            STREAMING_TODO + "; pass --no_stream to run the detect_score "
-            "demo alone")
+    top_k = min(7, len(te_pieces))
+    srv.detect_score(spec, top_k=top_k, n_candidates=args.n_candidates,
+                     verbose=True)
+    if args.host_stream:
+        srv.run(spec, top_k=top_k, n_candidates=args.n_candidates,
+                running_frames=args.running_frames, target_piece=tp,
+                max_frames=200)
+    else:
+        ranking, votes, fps = srv.run_device_stream(
+            spec, top_k=top_k, n_candidates=args.n_candidates,
+            running_frames=args.running_frames, max_frames=200)
+        print("device streaming at %.1f frames/s; top: %s"
+              % (fps, ranking[:3]))
     return None
 
 

@@ -18,21 +18,35 @@
 //     chunk. Each 256-row tile is staged in shared memory with coalesced
 //     loads (row stride padded to an odd word count: conflict-free), every
 //     thread scores one row against the 8 queries (broadcast reads), and
-//     warp w keeps query w's sorted k-best list (k rounded up to 32 slots)
-//     in shared memory: lanes
-//     whose score beats the current k-th best are inserted one at a time by
-//     the whole warp (ballot + shuffle). The chunk's list goes to a scratch
-//     buffer [Q, n_chunks, k].
-//   pass 2 (topk_merge_kernel): one warp per query merges the n_chunks
-//     lists the same way and writes the k best, descending.
+//     warp w keeps query w's sorted k-best list: lanes whose score beats
+//     the current k-th best are inserted one at a time by the whole warp
+//     (ballot + shuffle). The chunk's list ends in a scratch buffer
+//     [Q, n_chunks, kp], kp = min(k, chunk): a chunk has no more rows.
+//   pass 2 (topk_merge_kernel): one CTA per query; each of its 8 warps
+//     merges every 8th chunk's list into a list of its own (the first one
+//     copied, the others offered the same way), then warp 0 merges the 8
+//     lists and writes the k best, descending. A sorted list is offered 32
+//     entries at a time and the rest of it is skipped as soon as the worst
+//     of a group of 32 fails the threshold. (With one warp a query, the
+//     merge walked up to 489 lists in turn at Q = 1, N = 1e6, and took
+//     longer than the plain version.)
+// Where the lists live: lists of at most KSMEM entries (slots rounded up
+// to 32) sit in shared memory (8 bytes a slot, so pass 1 fits the 227 KB
+// a block may use). Longer ones stay in global memory: pass 1 builds each
+// list in place in its part_s / part_i slot, pass 2 in a scratch buffer
+// [Q, 8, k]. warp_insert / warp_offer take plain pointers, and __syncwarp()
+// orders the warp's global accesses as it orders its shared ones; each
+// kernel is instantiated once per place (template argument kSmem), so the
+// shared-memory lists are never reached through generic addressing. So any
+// 0 <= k <= N is served; a list in global memory costs L1/L2 latency on
+// every insertion, which is slow at large k but exact.
 // Query blocks are the fastest grid dimension, so the CTAs that read the
 // same chunk run close together and share it through L2.
 //
 // Semantics (those of the JAX kernel and of the plain PyTorch version):
 // descending scores; among equal scores the lower gallery index first;
 // a NaN score counts as -inf; rows past N are never returned. k may exceed
-// the Pallas kernel's 128: the lists take 8 bytes per slot of shared
-// memory, and the wrapper bounds k (KMAX = 1024) so that pass 1 fits.
+// the Pallas kernel's 128 and is bounded only by N.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,7 +57,8 @@ namespace {
 constexpr int QB = 8;          // queries per CTA (one warp each)
 constexpr int TILE = 256;      // gallery rows per shared-memory tile
 constexpr int THREADS = 256;   // pass 1: one thread per tile row
-constexpr int MERGE_WARPS = 4; // pass 2: queries per CTA
+constexpr int MERGE_WARPS = 8; // pass 2: warps per query
+constexpr int KSMEM = 1024;    // largest k whose lists sit in shared memory
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool better(float sa, int ia, float sb, int ib) {
@@ -94,22 +109,37 @@ __device__ __forceinline__ void warp_offer(float* ls, int* li, int& cnt, int k,
   }
 }
 
+template <bool kSmem>
 __global__ void __launch_bounds__(THREADS)
 topk_chunk_kernel(const float* __restrict__ queries,
                   const float* __restrict__ gallery, int Q, int N, int d,
                   int k, int kcap, int chunk, int n_chunks,
                   float* __restrict__ part_s, int* __restrict__ part_i) {
+  // k: the list width (kp of the entry point below);
+  // kSmem: the lists sit in shared memory, kcap slots each; otherwise each
+  // list is built in place in its part_s / part_i slot. (A template
+  // argument, not a run-time branch: the shared lists' pointers then stay
+  // shared-space pointers, and the insertions use shared loads and stores
+  // instead of generic ones.)
   extern __shared__ float smem[];
   const int stride = d | 1;                  // odd row stride: no conflicts
   float* gs = smem;                          // [TILE][stride]
   float* qs = gs + TILE * stride;            // [d][QB] (transposed)
   float* sc = qs + d * QB;                   // [QB][TILE] scores
-  float* ls = sc + QB * TILE;                // [QB][kcap] list scores
-  int* li = reinterpret_cast<int*>(ls + QB * kcap);  // [QB][kcap] indices
 
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int q0 = blockIdx.x * QB;
   const int c = blockIdx.y;
+  const long long base = ((long long)(q0 + w) * n_chunks + c) * k;
+  float* ls;  // warp w's list
+  int* li;
+  if constexpr (kSmem) {
+    ls = sc + QB * TILE + w * kcap;                        // [QB][kcap]
+    li = reinterpret_cast<int*>(sc + QB * TILE + QB * kcap) + w * kcap;
+  } else {
+    ls = part_s + base;
+    li = part_i + base;
+  }
   const long long row_begin = (long long)c * chunk;
   const long long row_end_ll = row_begin + chunk < N ? row_begin + chunk : N;
   const int row_end = (int)row_end_ll;
@@ -158,42 +188,94 @@ topk_chunk_kernel(const float* __restrict__ queries,
         int r = r0 + lane;
         bool valid = r < rows;
         float s = valid ? sc[w * TILE + r] : -INFINITY;
-        warp_offer(ls + w * kcap, li + w * kcap, cnt, k, valid, s, t0 + r,
-                   lane);
+        warp_offer(ls, li, cnt, k, valid, s, t0 + r, lane);
       }
     }
   }
 
-  if (q0 + w < Q) {
-    const long long base = ((long long)(q0 + w) * n_chunks + c) * k;
+  if (q0 + w < Q) {  // (in place when the list is part_s / part_i itself)
     for (int j = lane; j < k; j += 32) {
-      part_s[base + j] = j < cnt ? ls[w * kcap + j] : -INFINITY;
-      part_i[base + j] = j < cnt ? li[w * kcap + j] : -1;  // -1: empty slot
+      part_s[base + j] = j < cnt ? ls[j] : -INFINITY;
+      part_i[base + j] = j < cnt ? li[j] : -1;  // -1: empty slot
     }
   }
 }
 
+// Merge the sorted list (src_s, src_i)[0, len) into the warp's sorted list
+// ls/li (cnt entries, at most k). An entry with a negative index is empty,
+// and only empty entries follow it. Every argument is warp-uniform.
+__device__ __forceinline__ void warp_merge(const float* src_s,
+                                           const int* src_i, int len,
+                                           float* ls, int* li, int& cnt,
+                                           int k, int lane) {
+  if (cnt == 0) {  // an empty list takes the filled prefix as it is
+    const int n = len < k ? len : k;
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      int j = j0 + lane;
+      int i = j < n ? src_i[j] : -1;
+      if (i >= 0) { ls[j] = src_s[j]; li[j] = i; }
+      int filled = __popc(__ballot_sync(FULL, i >= 0));
+      cnt += filled;
+      if (filled < 32) break;
+    }
+    __syncwarp();
+    return;
+  }
+  for (int j0 = 0; j0 < len; j0 += 32) {
+    int j = j0 + lane;
+    int i = j < len ? src_i[j] : -1;
+    float s = j < len ? src_s[j] : -INFINITY;
+    // the group's worst entry (its last one) failing the threshold means
+    // every later entry of this sorted list fails too
+    bool want = i >= 0 && (cnt < k || better(s, i, ls[k - 1], li[k - 1]));
+    unsigned filled = __ballot_sync(FULL, i >= 0);
+    bool last_wanted = (__ballot_sync(FULL, want) >> 31) & 1u;
+    warp_offer(ls, li, cnt, k, i >= 0, s, i, lane);
+    if (filled != FULL || !last_wanted) break;
+  }
+}
+
+template <bool kSmem>
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 topk_merge_kernel(const float* __restrict__ part_s,
-                  const int* __restrict__ part_i, int Q, int k, int kcap,
-                  int n_chunks, float* __restrict__ out_s,
-                  int64_t* __restrict__ out_i) {
-  extern __shared__ float msmem[];  // [MERGE_WARPS][kcap] scores, then ids
+                  const int* __restrict__ part_i, int Q, int k, int kp,
+                  int kcap, int n_chunks, float* __restrict__ out_s,
+                  int64_t* __restrict__ out_i, float* __restrict__ scr_s,
+                  int* __restrict__ scr_i) {
+  // one CTA per query; warp w merges chunks w, w + MERGE_WARPS, ... into
+  // its own list, then warp 0 merges the other warps' lists into its own.
+  // kSmem: the lists sit in shared memory ([MERGE_WARPS][kcap] scores,
+  // then ids); otherwise in scr_s / scr_i [Q, MERGE_WARPS, k]
+  extern __shared__ float msmem[];
+  __shared__ int counts[MERGE_WARPS];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int q = blockIdx.x * MERGE_WARPS + w;
-  if (q >= Q) return;  // whole warp leaves; no block-wide barrier below
-  float* ls = msmem + w * kcap;
-  int* li = reinterpret_cast<int*>(msmem + MERGE_WARPS * kcap) + w * kcap;
-  const long long m = (long long)n_chunks * k;
-  const float* ps = part_s + (long long)q * m;
-  const int* pi = part_i + (long long)q * m;
-  int cnt = 0;
-  for (long long base = 0; base < m; base += 32) {
-    long long e = base + lane;
-    int i = e < m ? pi[e] : -1;
-    float s = e < m ? ps[e] : -INFINITY;
-    warp_offer(ls, li, cnt, k, i >= 0, s, i, lane);
+  const int q = blockIdx.x;
+  float* ls0;
+  int* li0;
+  long long stride;  // between two warps' lists
+  if constexpr (kSmem) {
+    ls0 = msmem;
+    li0 = reinterpret_cast<int*>(msmem + MERGE_WARPS * kcap);
+    stride = kcap;
+  } else {
+    ls0 = scr_s + (long long)q * MERGE_WARPS * k;
+    li0 = scr_i + (long long)q * MERGE_WARPS * k;
+    stride = k;
   }
+  float* ls = ls0 + w * stride;
+  int* li = li0 + w * stride;
+  const float* ps = part_s + (long long)q * n_chunks * kp;
+  const int* pi = part_i + (long long)q * n_chunks * kp;
+  int cnt = 0;
+  for (int c = w; c < n_chunks; c += MERGE_WARPS)
+    warp_merge(ps + (long long)c * kp, pi + (long long)c * kp, kp, ls, li,
+               cnt, k, lane);
+  if (lane == 0) counts[w] = cnt;
+  __syncthreads();
+  if (w != 0) return;
+  for (int v = 1; v < MERGE_WARPS; ++v)
+    warp_merge(ls0 + v * stride, li0 + v * stride, counts[v], ls, li, cnt, k,
+               lane);
   for (int j = lane; j < k; j += 32) {
     out_s[(long long)q * k + j] = j < cnt ? ls[j] : -INFINITY;
     out_i[(long long)q * k + j] = j < cnt ? (int64_t)li[j] : -1;
@@ -201,7 +283,8 @@ topk_merge_kernel(const float* __restrict__ part_s,
 }
 
 // Bytes of dynamic shared memory pass 1 needs for embedding width d and
-// list width kcap (k rounded up to a multiple of 32).
+// list width kcap (k rounded up to a multiple of 32; 0: lists in global
+// memory).
 int chunk_smem_bytes(int d, int kcap) {
   return (int)(sizeof(float) * (TILE * (d | 1) + d * QB + QB * TILE
                                 + QB * kcap)
@@ -213,33 +296,41 @@ int chunk_smem_bytes(int d, int kcap) {
 extern "C" {
 
 // queries [Q, d] f32, gallery [N, d] f32 (both contiguous, on the device);
-// part_s / part_i: scratch [Q, n_chunks, k]; out_s [Q, k] f32, out_i [Q, k]
-// int64. n_chunks = ceil(N / chunk). The k-best lists live in shared
-// memory, k entries of 8 bytes per query: the wrapper bounds k so that pass
-// 1 fits the card's per-block limit. Returns cudaGetLastError().
+// part_s / part_i: scratch [Q, n_chunks, min(k, chunk)]; out_s [Q, k] f32,
+// out_i [Q, k] int64; scr_s / scr_i: f32 / int32 scratch
+// [Q, MERGE_WARPS, k], read only when k > KSMEM (may be null otherwise).
+// n_chunks = ceil(N / chunk), 1 <= k <= N.
+// Returns cudaGetLastError().
 int topk_gallery_f32(const void* queries, const void* gallery, int Q, int N,
                      int d, int k, int chunk, int n_chunks, void* part_s,
-                     void* part_i, void* out_s, void* out_i, void* stream) {
+                     void* part_i, void* out_s, void* out_i, void* scr_s,
+                     void* scr_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int kcap = (k + 31) / 32 * 32;
-  const int smem1 = chunk_smem_bytes(d, kcap);
-  cudaFuncSetAttribute(topk_chunk_kernel,
+  const int kp = k < chunk ? k : chunk;  // a chunk's list: at most its rows
+  const int kcap1 = kp <= KSMEM ? (kp + 31) / 32 * 32 : 0;
+  const int kcap = k <= KSMEM ? (k + 31) / 32 * 32 : 0;
+  const int smem1 = chunk_smem_bytes(d, kcap1);
+  auto chunk_kernel =
+      kcap1 > 0 ? topk_chunk_kernel<true> : topk_chunk_kernel<false>;
+  cudaFuncSetAttribute(chunk_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   dim3 grid1((Q + QB - 1) / QB, n_chunks);
-  topk_chunk_kernel<<<grid1, THREADS, smem1, st>>>(
+  chunk_kernel<<<grid1, THREADS, smem1, st>>>(
       static_cast<const float*>(queries), static_cast<const float*>(gallery),
-      Q, N, d, k, kcap, chunk, n_chunks, static_cast<float*>(part_s),
+      Q, N, d, kp, kcap1, chunk, n_chunks, static_cast<float*>(part_s),
       static_cast<int*>(part_i));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int smem2 = (int)((sizeof(float) + sizeof(int)) * MERGE_WARPS * kcap);
-  cudaFuncSetAttribute(topk_merge_kernel,
+  auto merge_kernel =
+      kcap > 0 ? topk_merge_kernel<true> : topk_merge_kernel<false>;
+  cudaFuncSetAttribute(merge_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
-  topk_merge_kernel<<<(Q + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS,
-                      smem2, st>>>(
+  merge_kernel<<<Q, 32 * MERGE_WARPS, smem2, st>>>(
       static_cast<const float*>(part_s), static_cast<const int*>(part_i), Q,
-      k, kcap, n_chunks, static_cast<float*>(out_s),
-      static_cast<int64_t*>(out_i));
+      k, kp, kcap, n_chunks, static_cast<float*>(out_s),
+      static_cast<int64_t*>(out_i), static_cast<float*>(scr_s),
+      static_cast<int*>(scr_i));
   return (int)cudaGetLastError();
 }
 

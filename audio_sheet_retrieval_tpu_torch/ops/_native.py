@@ -36,9 +36,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
     "topk_gallery": {
         # queries, gallery, Q, N, d, k, chunk, n_chunks, part_s, part_i,
-        # out_s, out_i, stream
+        # out_s, out_i, scr_s, scr_i, stream
         "topk_gallery_f32": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                              _P, _P], _I),
+                              _P, _P, _P, _P], _I),
     },
     "feature_windows": {
         # plane, starts, N, C, H4, Wq, n_cols, elem_bytes, out, stream

@@ -2,11 +2,13 @@
 
 ``topk_gallery(queries [Q, d], gallery [N, d], k)`` -> (scores [Q, k] f32,
 row indices [Q, k] int64), descending; among equal scores the lower row
-index comes first; a NaN score counts as -inf; 0 <= k <= N. The kernel takes
-k up to ``KMAX`` (the JAX Pallas kernel: 128); the plain version any k. The [Q, N] score matrix is
-never built on the card: ``csrc/topk_gallery.cu`` splits the gallery into
+index comes first; a NaN score counts as -inf; 0 <= k <= N, on the card as
+on the CPU (the JAX Pallas kernel takes k <= 128). The [Q, N] score matrix
+is never built on the card: ``csrc/topk_gallery.cu`` splits the gallery into
 chunks across CTAs, keeps a k-best list per (query, chunk), and merges the
-lists in a second launch. Replaces the JAX package's Pallas kernel
+lists in a second launch. Lists of k <= ``KSMEM`` sit in shared memory;
+longer ones stay in global memory (slower, as exact). Replaces the JAX
+package's Pallas kernel
 (``audio_sheet_retrieval_tpu/ops/topk_gallery.py::_topk_kernel``).
 
 Given CPU tensors the wrapper runs ``topk_gallery_plain`` (matmul + stable
@@ -22,10 +24,11 @@ import torch
 
 from audio_sheet_retrieval_tpu_torch.ops import _native
 
-KMAX = 1024         # largest k the kernel takes (its lists sit in shared
-                    # memory; pass 1 fits 227 KiB at k = 1024, d = MAX_D)
+KSMEM = 1024        # largest k whose lists sit in shared memory (csrc:
+                    # KSMEM; pass 1 fits 227 KiB at k = 1024, d = MAX_D)
 TILE = 256          # gallery rows per shared-memory tile (csrc: TILE)
 QB = 8              # queries per CTA (csrc: QB)
+MERGE_WARPS = 8     # merge-pass warps per query (csrc: MERGE_WARPS)
 MAX_D = 128         # widest embedding the pass-1 shared memory takes
 TARGET_CTAS = 4 * 132  # pass-1 CTAs to aim for: 4 per H100 SM
 MAX_CHUNK = 8192    # gallery rows per CTA at most
@@ -36,13 +39,6 @@ def _check_k(k: int, n: int) -> None:
         raise ValueError(f"k={k} > gallery size {n}")
     if k < 0:
         raise ValueError(f"k={k} < 0")
-
-
-def check_kernel_k(k: int) -> None:
-    """The kernel's bound on k (the plain version has none)."""
-    if k > KMAX:
-        raise ValueError(f"k={k} > KMAX={KMAX}, the CUDA kernel's largest "
-                         f"k (ROADMAP Queue 2)")
 
 
 def topk_gallery_plain(queries: torch.Tensor, gallery: torch.Tensor,
@@ -88,7 +84,6 @@ def topk_gallery(queries: torch.Tensor, gallery: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if d > MAX_D:
         raise ValueError(f"embedding width {d} > {MAX_D}")
-    check_kernel_k(k)
     if n >= 2**31 - MAX_CHUNK:
         raise ValueError(f"gallery of {n} rows exceeds int32 indexing")
     out_s = torch.empty((q_n, k), dtype=torch.float32, device=queries.device)
@@ -100,15 +95,24 @@ def topk_gallery(queries: torch.Tensor, gallery: torch.Tensor,
     if n_chunks > 65535:
         raise ValueError(f"gallery of {n} rows needs {n_chunks} chunks "
                          f"> 65535 (grid y limit)")
-    part_s = torch.empty((q_n, n_chunks, k), dtype=torch.float32,
+    kp = min(k, chunk)  # a chunk's list holds at most the chunk's rows
+    part_s = torch.empty((q_n, n_chunks, kp), dtype=torch.float32,
                          device=queries.device)
-    part_i = torch.empty((q_n, n_chunks, k), dtype=torch.int32,
+    part_i = torch.empty((q_n, n_chunks, kp), dtype=torch.int32,
                          device=queries.device)
+    # the merge pass's per-warp lists, when they do not fit shared memory
+    scr_s = scr_i = None
+    if k > KSMEM:
+        scr_s = torch.empty((q_n, MERGE_WARPS, k), dtype=torch.float32,
+                            device=queries.device)
+        scr_i = torch.empty((q_n, MERGE_WARPS, k), dtype=torch.int32,
+                            device=queries.device)
     lib = _native.load("topk_gallery")
     err = lib.topk_gallery_f32(
         queries.data_ptr(), gallery.data_ptr(), q_n, n, d, k, chunk,
         n_chunks, part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(),
+        out_i.data_ptr(), None if scr_s is None else scr_s.data_ptr(),
+        None if scr_i is None else scr_i.data_ptr(),
         torch.cuda.current_stream(queries.device).cuda_stream)
     _native.check(err, "topk_gallery")
     topk_gallery.launches += 1

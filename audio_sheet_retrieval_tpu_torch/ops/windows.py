@@ -1,10 +1,10 @@
-"""Window extraction over long inputs (strips, spectrograms) and the
-strip / spectrogram embedders of the serving path.
+"""Window extraction over long inputs (strips, spectrograms, waveforms) and
+the strip / spectrogram / audio embedders of the serving path.
 
-A whole unrolled strip or spectrogram uploads once; the windows are cut on
-the device. The fullconv strip embedder runs the first conv block once over
-the whole strip and cuts block 2's inputs from its feature plane with kernel
-2 of the port, ``gather_feature_windows`` (``csrc/feature_windows.cu``;
+A whole unrolled strip, spectrogram or waveform uploads once; the windows
+are cut on the device. The fullconv strip embedder runs the first conv
+block once over the whole strip and cuts block 2's inputs from its feature
+plane with kernel 2 of the port, ``gather_feature_windows`` (``csrc/feature_windows.cu``;
 replaces the JAX package's ``gather_feature_windows_pallas``). Given a CPU
 plane the wrapper runs ``gather_feature_windows_plain``; given a CUDA plane
 it launches the kernel or raises.
@@ -12,12 +12,14 @@ it launches the kernel or raises.
 Window starts are host arrays and are checked on the host: an out-of-range
 start raises instead of reading out of bounds on the device.
 
-The JAX module's wire codecs (rle, pack4, rANS) are not ported yet
-(ROADMAP Queue 1 #8).
+Audio uploads as int16 samples or as 8-bit mu-law bytes (``mulaw_encode``
+on the host, ``mulaw_decode_device`` on the device). The JAX module's other
+wire codecs (rle, pack4, rANS) are not ported yet (ROADMAP Queue 1 #8).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from audio_sheet_retrieval_tpu.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import cca_model
 from audio_sheet_retrieval_tpu_torch.ops import _native
+from audio_sheet_retrieval_tpu_torch.ops.audio import INT16_MAX
 from audio_sheet_retrieval_tpu_torch.train.engine import (
     prepare_view1_device,
     prepare_view2_device,
@@ -127,15 +130,17 @@ def _clamp_row0(r0: int, height: int, crop_h: int) -> int:
 
 def make_strip_embedder(params: cca_model.ModelParams, cfg: ModelConfig, *,
                         center_crop: Optional[int] = None,
-                        fullconv: bool = False, device) -> Callable:
+                        gather_half: bool = False, fullconv: bool = False,
+                        device) -> Callable:
     """Sheet strip -> window embeddings on ``device``.
 
     Returns fn(strip_u8 [H, W], starts [N]) -> [N, dim] (a tensor on
     ``device``). The strip is raw uint8 and uploads once; the vertical
     centre crop (server semantics, audio_sheet_server.py:265-271), /255, the
     half resize ('prepare') and encoder + CCA + L2 run on the device.
-    ``fullconv`` selects the strip-level first block (see
-    ``_strip_embed_core_fullconv``).
+    ``gather_half`` halves the whole strip once and cuts the windows at half
+    resolution (see ``embed_strip_windows``); ``fullconv`` selects the
+    strip-level first block (see ``_strip_embed_core_fullconv``).
     """
     cca_model.check_numerics(cfg)
     crop_h = center_crop or cfg.input_shape_1[1]
@@ -145,20 +150,40 @@ def make_strip_embedder(params: cca_model.ModelParams, cfg: ModelConfig, *,
         strip = to_device(strip_u8, device)
         if strip.dtype != torch.uint8:
             raise TypeError(f"strip must be uint8, got {strip.dtype}")
-        return _strip_embed_core(params, strip, starts, cfg, crop_h,
-                                 fullconv)
+        return embed_strip_windows(params, strip, starts, cfg, crop_h,
+                                   gather_half, fullconv)
 
     return embed
 
 
-def _strip_embed_core(params, strip: torch.Tensor, starts, cfg: ModelConfig,
-                      crop_h: int, fullconv: bool = False) -> torch.Tensor:
+def embed_strip_windows(params, strip: torch.Tensor, starts,
+                        cfg: ModelConfig, crop_h: int,
+                        gather_half: bool = False,
+                        fullconv: bool = False) -> torch.Tensor:
     """Centre crop, window gather, 'prepare', encoder + CCA + L2 — or the
-    fullconv path when ``fullconv`` and the model halves its input."""
+    fullconv path when ``fullconv`` and the model halves its input.
+
+    ``gather_half`` (when the model halves its input): the 2x2 mean of the
+    whole strip is taken once and the windows are cut from it at half
+    resolution, start // 2 — a quarter of the gather traffic and no
+    per-window resize. The half resize is a 2x2 mean block by block, so for
+    even window starts and an even crop row this is bit-identical to the
+    standard path; odd starts round down one pixel. The strip must have an
+    even height and width (the JAX package resizes an odd one by another
+    ratio than 2).
+    """
     if fullconv and cfg.sheet_downscale == 2:
         return _strip_embed_core_fullconv(params, strip, starts, cfg, crop_h)
     window = cfg.input_shape_1[2]
     st = host_starts(starts, 0, strip.shape[1] - window)
+    if gather_half and cfg.sheet_downscale == 2:
+        half = half_plane(strip)
+        r0 = _clamp_row0((strip.shape[0] // 2 - crop_h // 2) // 2,
+                         half.shape[0], crop_h // 2)
+        wins = gather_windows(half[r0:r0 + crop_h // 2],
+                              torch.from_numpy(st // 2).to(strip.device),
+                              window // 2)
+        return cca_model.embed_view1(params, wins[:, None], cfg)
     r0 = _clamp_row0(strip.shape[0] // 2 - crop_h // 2, strip.shape[0],
                      crop_h)
     crop = strip[r0:r0 + crop_h].to(torch.float32)
@@ -202,19 +227,25 @@ def _strip_embed_core_fullconv(params, strip: torch.Tensor, starts,
     return cca_model.length_norm((h1 - params.cca.mean1) @ params.cca.U)
 
 
+def half_plane(strip: torch.Tensor) -> torch.Tensor:
+    """uint8 strip [H, W] (even H and W) -> its /255 2x2-mean half plane
+    [H/2, W/2], float32 (the half resize of 'prepare', taken once)."""
+    if strip.shape[0] % 2 or strip.shape[1] % 2:
+        raise ValueError(f"a half plane needs an even strip height and "
+                         f"width (a 2x2 mean); got {tuple(strip.shape)}")
+    return F.avg_pool2d(strip.to(torch.float32)[None, None] * (1.0 / 255.0),
+                        2)[0, 0]
+
+
 @torch.no_grad()
 def fullconv_plane(params, strip: torch.Tensor, crop_h: int) -> torch.Tensor:
     """uint8 strip [H, W] (even H and W) -> the dense-pooled block-1
     feature plane [C, crop_h/4, W/2 - 1] of its half-res centre crop."""
-    if strip.shape[0] % 2 or strip.shape[1] % 2:
-        raise ValueError(f"fullconv needs an even strip height and width "
-                         f"(a 2x2-mean half plane); got {tuple(strip.shape)}")
-    half = F.avg_pool2d(strip.to(torch.float32)[None, None] * (1.0 / 255.0),
-                        2)
+    half = half_plane(strip)
     # the full-res centre-crop row, halved (as the JAX package rounds it)
-    r0 = _clamp_row0((strip.shape[0] // 2 - crop_h // 2) // 2, half.shape[2],
+    r0 = _clamp_row0((strip.shape[0] // 2 - crop_h // 2) // 2, half.shape[0],
                      crop_h // 2)
-    half = half[:, :, r0:r0 + crop_h // 2]
+    half = half[None, None, r0:r0 + crop_h // 2]
     view1 = params.view1
     h = view1.block(1, view1.block(0, half))
     return F.max_pool2d(h, kernel_size=2, stride=(2, 1))[0].contiguous()
@@ -283,3 +314,103 @@ def embed_spec_windows(params: cca_model.ModelParams, cfg: ModelConfig,
     wins = gather_windows(spec, torch.from_numpy(st).to(spec.device), window)
     return cca_model.embed_view2(params, prepare_view2_device(wins[:, None]),
                                  cfg)
+
+
+def make_spec_embedder(params: cca_model.ModelParams, cfg: ModelConfig, *,
+                       device) -> Callable:
+    """float32 spectrogram embedder on ``device``: fn(spec [bins, T],
+    starts [N]) -> [N, dim] (window gather + encoder + CCA + L2)."""
+    params = params.to(device)
+
+    def embed(spec, starts) -> torch.Tensor:
+        return embed_spec_windows(params, cfg,
+                                  to_device(spec, device, torch.float32),
+                                  starts)
+
+    return embed
+
+
+# --- audio upload --------------------------------------------------------------
+
+
+def mulaw_encode(signal_i16: np.ndarray, mu: int = 255) -> np.ndarray:
+    """int16 waveform -> 8-bit mu-law companded bytes (host side): one byte
+    a sample on the wire instead of two."""
+    x = np.asarray(signal_i16, np.float32) * (1.0 / 32768.0)
+    y = np.sign(x) * np.log1p(mu * np.abs(x)) * (1.0 / np.log1p(mu))
+    return np.round((y + 1.0) * 127.5).astype(np.uint8)
+
+
+def _mulaw_table(mu: float) -> np.ndarray:
+    """The float32 decode of each of the 256 codes, with the JAX package's
+    float32 steps and a correctly rounded expm1 (float64, then rounded)."""
+    y = np.arange(256, dtype=np.float32) * np.float32(1.0 / 127.5) \
+        - np.float32(1.0)
+    a = np.abs(y) * np.float32(np.log1p(np.float32(mu)))
+    e = np.expm1(a.astype(np.float64)).astype(np.float32)
+    return np.sign(y) * e * np.float32(1.0 / mu)
+
+
+@functools.lru_cache(maxsize=None)
+def _mulaw_table_on(mu: float, device: torch.device) -> torch.Tensor:
+    """``_mulaw_table(mu)`` uploaded to ``device``, once per (mu, device)."""
+    return torch.from_numpy(_mulaw_table(mu)).to(device)
+
+
+def mulaw_decode_device(u8: torch.Tensor, mu: float = 255.0) -> torch.Tensor:
+    """Inverse of ``mulaw_encode`` on the tensor's device -> float32 in
+    [-1, 1]. A lookup in a 256-entry table built on the host once per device,
+    so the card and the CPU give the same bits (a device expm1 need not be
+    correctly rounded: the JAX package's decode on the CPU is up to 2**-24
+    off at 58 of the 256 codes)."""
+    if u8.dtype != torch.uint8:
+        raise TypeError(f"mu-law codes must be uint8, got {u8.dtype}")
+    return _mulaw_table_on(float(mu), u8.device)[u8.to(torch.int64)]
+
+
+def embed_audio_windows(params: cca_model.ModelParams, cfg: ModelConfig,
+                        processor, signal: torch.Tensor, starts,
+                        num_frames: int) -> torch.Tensor:
+    """float32 waveform [n] on the device (int range folded in) + host
+    excerpt starts -> excerpt embeddings [N, dim]: spectrogram
+    (``processor.process_on_device``), window gather, encoder, CCA, L2."""
+    spec = processor.process_on_device(signal, num_frames).T
+    return embed_spec_windows(params, cfg, spec, starts)
+
+
+def make_audio_embedder(params: cca_model.ModelParams, cfg: ModelConfig,
+                        processor, *, device) -> Callable:
+    """Raw int16 waveform -> spectrogram -> window embeddings on ``device``:
+    fn(signal_i16 [n], starts [N], num_frames) -> [N, dim]. The host
+    uploads int16 samples only.
+
+    Frames past the end of the signal read zeros, as ``processor.process``
+    and madmom do. (The JAX package's fused audio paths clamp the gather
+    index there and repeat the last sample instead: ROADMAP Queue 3.)"""
+    params = params.to(device)
+
+    def embed(signal_i16, starts, num_frames: int) -> torch.Tensor:
+        sig = to_device(signal_i16, device)
+        if sig.dtype != torch.int16:
+            raise TypeError(f"signal must be int16, got {sig.dtype}")
+        return embed_audio_windows(
+            params, cfg, processor, sig.to(torch.float32) * (1.0 / INT16_MAX),
+            starts, num_frames)
+
+    return embed
+
+
+def make_audio_embedder_mulaw(params: cca_model.ModelParams, cfg: ModelConfig,
+                              processor, *, device) -> Callable:
+    """mu-law variant of ``make_audio_embedder``: fn(signal_u8 [n],
+    starts [N], num_frames) -> [N, dim]. The decode is /32768-scaled, the
+    int16 path divides by 32767, hence the 32768/32767 factor."""
+    params = params.to(device)
+
+    def embed(signal_u8, starts, num_frames: int) -> torch.Tensor:
+        sig = mulaw_decode_device(to_device(signal_u8, device)) \
+            * (32768.0 / INT16_MAX)
+        return embed_audio_windows(params, cfg, processor, sig, starts,
+                                   num_frames)
+
+    return embed

@@ -1,5 +1,7 @@
 """Device-resident embedding gallery with top-k search, and the fused
-spectrogram piece-ID query.
+piece-ID queries: raw audio or a spectrogram against a sheet gallery
+(audio -> sheet), a raw sheet strip against an audio gallery (sheet ->
+audio).
 
 The reference's retrieval hot path is a per-query scipy ``cdist`` against
 the whole snippet-code database on the host (reference:audio_sheet_server.py:
@@ -27,6 +29,9 @@ from audio_sheet_retrieval_tpu_torch.models import cca_model
 from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 from audio_sheet_retrieval_tpu_torch.ops.windows import (
     embed_spec_windows,
+    make_audio_embedder,
+    make_audio_embedder_mulaw,
+    make_strip_embedder,
     spec_dequantize_device,
     to_device,
 )
@@ -53,14 +58,18 @@ class DeviceGallery:
             raise ValueError(f"ids must be [{self.n}], got {self.ids.shape}")
         self.ids_device = torch.from_numpy(self.ids).to(self.device)
 
-    def topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """-> (distances [Q, k], gallery indices [Q, k]); k is cut to the
-        gallery size. A CUDA gallery takes k up to
-        ``ops.topk_gallery.KMAX``; a CPU gallery any k."""
+    def search(self, queries, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (cosine scores [Q, k], gallery indices [Q, k]), both on the
+        gallery's device; k is cut to the gallery size. A NaN query scores
+        -inf everywhere and gets indices 0..k-1."""
         k = min(k, self.n)
         q = to_device(queries, self.device, torch.float32)
         q = _normalize(torch.atleast_2d(q)).contiguous()
-        s, i = topk_gallery(q, self.gallery_n, k)
+        return topk_gallery(q, self.gallery_n, k)
+
+    def topk(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """-> (distances [Q, k], gallery indices [Q, k]) on the host."""
+        s, i = self.search(queries, k)
         return (1.0 - s).cpu().numpy(), i.cpu().numpy()
 
     def topk_ids(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -78,6 +87,41 @@ def embed_spec_excerpts(params: cca_model.ModelParams, cfg: ModelConfig,
     spec = (spec_dequantize_device(payload, scale) if quantized
             else payload.to(torch.float32))
     return embed_spec_windows(params, cfg, spec, starts)
+
+
+def _vote_counts(gallery: DeviceGallery, codes: torch.Tensor, k: int,
+                 n_pieces: int) -> torch.Tensor:
+    """Top-k of each code (kernel 1 on the card) -> per-piece vote counts
+    [n_pieces] (int64, on the device); labels >= n_pieces are not counted
+    (the JAX one-hot drops them)."""
+    _, idx = topk_gallery(codes.contiguous(), gallery.gallery_n, k)
+    pid = gallery.ids_device[idx].reshape(-1)
+    return torch.bincount(pid, minlength=n_pieces)[:n_pieces]
+
+
+def make_fused_piece_query(params: cca_model.ModelParams, cfg: ModelConfig,
+                           processor, gallery: DeviceGallery, n_pieces: int,
+                           *, n_candidates: int = 25,
+                           mulaw: bool = True) -> Callable:
+    """Raw audio -> per-piece vote counts, all on the gallery's device
+    (reference detect_score, audio_sheet_server.py:213-253): mu-law decode
+    (or int16 scaling), spectrogram, excerpt embedding, gallery top-k and
+    vote histogram; the host downloads only the [n_pieces] counts. With
+    ``mulaw`` the query uploads one byte per audio sample.
+
+    query(audio, starts, num_frames) -> vote counts [n_pieces] (int64, on
+    the device); audio is mu-law uint8 (``mulaw``) or int16 samples, starts
+    are excerpt start frames.
+    """
+    k = min(n_candidates, gallery.n)
+    make = make_audio_embedder_mulaw if mulaw else make_audio_embedder
+    embed = make(params, cfg, processor, device=gallery.device)
+
+    def query(audio, starts, num_frames: int) -> torch.Tensor:
+        return _vote_counts(gallery, embed(audio, starts, num_frames), k,
+                            n_pieces)
+
+    return query
 
 
 def make_fused_piece_query_spec(params: cca_model.ModelParams,
@@ -102,9 +146,30 @@ def make_fused_piece_query_spec(params: cca_model.ModelParams,
         codes = embed_spec_excerpts(
             params, cfg, to_device(payload, gallery.device), scale, starts,
             quantized)
-        _, idx = topk_gallery(codes.contiguous(), gallery.gallery_n, k)
-        pid = gallery.ids_device[idx].reshape(-1)
-        # labels >= n_pieces are not counted (the JAX one-hot drops them)
-        return torch.bincount(pid, minlength=n_pieces)[:n_pieces]
+        return _vote_counts(gallery, codes, k, n_pieces)
+
+    return query
+
+
+def make_fused_sheet_query(params: cca_model.ModelParams, cfg: ModelConfig,
+                           gallery: DeviceGallery, n_pieces: int, *,
+                           n_candidates: int = 25) -> Callable:
+    """Unrolled sheet strip -> per-performance vote counts, all on the
+    gallery's device (reference detect_performance, audio_sheet_server.py:
+    255-300): the raw uint8 strip uploads once, then the vertical centre
+    crop (row H//2 - h//2, clamped into the strip), window gather,
+    'prepare', view-1 embedding, audio-gallery top-k and vote histogram.
+
+    The JAX version's compressed wires (rle2, rle, pack4) are not ported
+    (ROADMAP Queue 1 #8); this is its ``coding="raw"`` arm.
+
+    query(strip_u8 [H, W], starts [N] in strip pixels) -> vote counts
+    [n_pieces] (int64, on the device).
+    """
+    k = min(n_candidates, gallery.n)
+    embed = make_strip_embedder(params, cfg, device=gallery.device)
+
+    def query(strip_u8, starts) -> torch.Tensor:
+        return _vote_counts(gallery, embed(strip_u8, starts), k, n_pieces)
 
     return query

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON line (any failure raises and the script
+Phases, each printed as JSON lines (any failure raises and the script
 exits non-zero):
 
 1. device: the card's name and power limit; TF32 off for convolutions and
@@ -10,10 +10,12 @@ exits non-zero):
 2. build: both CUDA kernels compiled from ``audio_sheet_retrieval_tpu_torch/
    csrc`` with nvcc (ptxas register / shared-memory report).
 3. kernels: each kernel against its plain PyTorch version on the card
-   (top-k: scores atol 1e-4, equal index sets, tie rule, k up to the
-   kernel's largest; gather:
-   bit-identical, f32 and bf16), and each one's median time beside the
-   plain version's at the serving shapes (CUDA events, after a warm-up).
+   (top-k: scores atol 1e-4, equal index sets, tie rule, NaN queries, k up
+   to 2048 and k = N, with lists in shared and in global memory, and every
+   shape it is timed at; gather: bit-identical, f32 and bf16), and each
+   one's median time beside the plain version's (CUDA events, after a
+   warm-up) at the serving shapes: Q = 100 excerpts, and the streaming
+   shapes Q = 1 and Q = 8.
 4. main path: the vendored synthetic-corpus serving checkpoint at full
    width (``mutopia_ccal_cont_rsz``, f32), a 60-piece synthetic corpus,
    gallery built on the card, 100-excerpt piece-ID queries; rank<=1 >= 59/60
@@ -21,11 +23,27 @@ exits non-zero):
 5. fullconv: the same gallery through the strip-level first block and the
    feature-window gather kernel; the same embeddings as through the plain
    gather, rank<=1 >= 59/60, and the cosine to the exact build reported.
-6. cli: the server CLI's full evaluation, with and without ``--fused``.
+   The ``gather_half`` strip path equals the standard one bit for bit at
+   even window starts.
+6. cli: both server CLIs' full evaluations (audio -> sheet and sheet ->
+   audio, 8 pieces), each with and without ``--fused``: the same ranks.
+7. s2a: sheet -> audio on the 60-piece corpus: the audio DB built on the
+   card (u16 upload), each strip queried with
+   ``detect_performance_from_sheet``; ranks equal to a replay through the
+   plain top-k, rank<=1 at least the JAX package's own count less one.
+8. streaming: ``run_device_stream`` over 400 frames of three pieces against
+   phase 4's gallery, at chunk 8 and per frame; vote histograms equal to
+   the host loop ``run``'s; frames/s, also against a 10^6-row gallery.
+9. audio: ``AudioProcessor.process`` on the card against the golden
+   spectrogram (2e-5) and the numpy DSP (2e-4), the golden spectrogram
+   codes of the tutorial checkpoint (2e-4), and the mu-law raw-audio query
+   ``detect_score_from_audio`` against process -> ``detect_score``: the
+   same top-1, votes within 0.05.
 
-The launch counters are zeroed before phase 4 and read after phase 6, so
-the ``kernels`` line reports how often the serving path itself launched
-each kernel. The last line is ``{"ok": true, "device": {...}}``.
+The launch counters are zeroed before phase 4 and read after phase 6, and
+zeroed before and read after each of phases 7-9; each of those phases must
+launch the top-k kernel, and the ``kernels`` line reports the sum over
+phases 4-9. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,6 +54,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 TOPK_ATOL = 1e-4   # kernel vs cuBLAS + sort: f32 sums in another order
 
@@ -143,7 +163,7 @@ def check_topk(torch, q, g, k):
 
 def phase_kernels(torch):
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
-        KMAX,
+        KSMEM,
         topk_gallery,
         topk_gallery_plain,
     )
@@ -167,10 +187,19 @@ def phase_kernels(torch):
              ("serving", 100, 12000, 32, 25),
              ("serving", 100, 100_000, 32, 25),
              ("serving", 100, 1_000_000, 32, 25),
+             # the streaming shapes: one frame (Q = 1) and a chunk (Q = 8)
+             ("streaming", 1, 12_000, 32, 25),
+             ("streaming", 8, 12_000, 32, 25),
+             ("streaming", 1, 1_000_000, 32, 25),
+             ("streaming", 8, 1_000_000, 32, 25),
              ("k128", 100, 100_000, 32, 128),
-             ("kmax", 100, 100_000, 32, KMAX), ("kmax", 3, 2000, 128, KMAX)]
+             ("ksmem", 100, 100_000, 32, KSMEM),
+             ("ksmem", 3, 2000, 128, KSMEM),
+             # lists in global memory (k > KSMEM), up to k = N
+             ("k2048", 100, 100_000, 32, 2048),
+             ("k=N", 8, 3000, 128, 3000), ("k=N", 5, 777, 32, 777)]
     for kind, qn, n, d, k in cases:
-        unit_rows = kind in ("serving", "k128", "kmax")
+        unit_rows = kind not in ("tier1", "unaligned")
         g = unit(randn(n, d)) if unit_rows else randn(n, d)
         q = unit(randn(qn, d)) if unit_rows else randn(qn, d)
         err = check_topk(torch, q, g, k)
@@ -182,21 +211,24 @@ def phase_kernels(torch):
     topk_err = max(topk_err, check_topk(torch, -g[:3].contiguous(), g, 8))
     g = randn(50_000, 32)
     topk_err = max(topk_err, check_topk(torch, -g[:64].contiguous(), g, 25))
-    # duplicate rows: exact ties; the lower index must win
+    # duplicate rows: exact ties; the lower index must win (shared-memory
+    # lists and global-memory lists)
     base = randn(500, 32)
     g = base.repeat(40, 1).contiguous()          # row r == row r % 500
     q = randn(24, 32)
-    s, i = topk_gallery(q, g, 25)
-    ps, pi = topk_gallery_plain(q, g, 25)
-    assert torch.equal(i, pi), "duplicate rows: tie order differs"
-    topk_err = max(topk_err, float((s - ps).abs().max()))
+    for k in (25, KSMEM + 100):
+        s, i = topk_gallery(q, g, k)
+        ps, pi = topk_gallery_plain(q, g, k)
+        assert torch.equal(i, pi), f"duplicate rows: tie order differs, k={k}"
+        topk_err = max(topk_err, float((s - ps).abs().max()))
     # NaN queries: NaN scores count as -inf, nothing raises
     q = randn(9, 32)
     q[[1, 4]] = float("nan")
-    s, i = topk_gallery(q, randn(3000, 32), 25)
-    torch.cuda.synchronize()
-    assert bool(torch.isneginf(s[[1, 4]]).all())
-    assert torch.equal(i[[1, 4]].cpu(), torch.arange(25).repeat(2, 1))
+    for k in (25, 3000):
+        s, i = topk_gallery(q, randn(3000, 32), k)
+        torch.cuda.synchronize()
+        assert bool(torch.isneginf(s[[1, 4]]).all())
+        assert torch.equal(i[[1, 4]].cpu(), torch.arange(k).repeat(2, 1))
     emit("kernels", kernel="topk_gallery", case="anti/dup/nan", ok=True)
 
     gather_err = 0.0
@@ -223,15 +255,21 @@ def phase_kernels(torch):
     assert gather_feature_windows.launches == before, "N = 0 launched"
 
     # times at the main path's shapes: Q = 100 excerpts x the 60-piece
-    # gallery (12,000 rows), d = 32, k = 25; one 6040-px strip's plane
+    # gallery (12,000 rows), d = 32, k = 25; the streaming shapes Q = 1 (one
+    # frame) and Q = 8 (a chunk); one large k; one 6040-px strip's plane
     times = {}
-    for n in (12_000, 100_000, 1_000_000):
-        g, q = unit(randn(n, 32)), unit(randn(100, 32))
-        times[("topk", n)] = (
-            cuda_ms(lambda: topk_gallery(q, g, 25)),
-            cuda_ms(lambda: topk_gallery_plain(q, g, 25)))
-        emit("timing", kernel="topk_gallery", Q=100, N=n, k=25,
-             ms=times[("topk", n)][0], plain_ms=times[("topk", n)][1])
+    for qn, n, k in ((100, 12_000, 25), (100, 100_000, 25),
+                     (100, 1_000_000, 25), (1, 12_000, 25), (8, 12_000, 25),
+                     (1, 1_000_000, 25), (8, 1_000_000, 25),
+                     (100, 100_000, 2048)):
+        g, q = unit(randn(n, 32)), unit(randn(qn, 32))
+        iters = 5 if k > KSMEM else 20
+        times[("topk", qn, n, k)] = (
+            cuda_ms(lambda: topk_gallery(q, g, k), iters=iters),
+            cuda_ms(lambda: topk_gallery_plain(q, g, k), iters=iters))
+        emit("timing", kernel="topk_gallery", Q=qn, N=n, k=k,
+             ms=times[("topk", qn, n, k)][0],
+             plain_ms=times[("topk", qn, n, k)][1])
     plane = randn(24, 40, 3019)
     starts = torch.arange(0, 2920, 25, device=dev, dtype=torch.int32)
     times["gather"] = (
@@ -240,7 +278,7 @@ def phase_kernels(torch):
     emit("timing", kernel="gather_feature_windows", C=24, H4=40, Wq=3019,
          n_cols=50, N=len(starts), ms=times["gather"][0],
          plain_ms=times["gather"][1])
-    return {"topk_gallery": (topk_err,) + times[("topk", 12_000)],
+    return {"topk_gallery": (topk_err,) + times[("topk", 100, 12_000, 25)],
             "gather_feature_windows": (gather_err,) + times["gather"]}
 
 
@@ -291,13 +329,30 @@ def plain_fullconv_codes(torch, params, cfg, images, coords):
     return out
 
 
-def phase_serving(torch, kernel_stats):
+def zero_launches():
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
+
+    topk_gallery.launches = 0
+    win.gather_feature_windows.launches = 0
+
+
+def read_launches() -> dict:
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
+
+    return {"topk_gallery": topk_gallery.launches,
+            "gather_feature_windows": win.gather_feature_windows.launches}
+
+
+def phase_serving(torch):
     from audio_sheet_retrieval_tpu import assets
     from audio_sheet_retrieval_tpu.data import synthetic
     from audio_sheet_retrieval_tpu.models.configs import get_model_config
     from audio_sheet_retrieval_tpu_torch.cli import audio_sheet_server as cli
+    from audio_sheet_retrieval_tpu_torch.cli import sheet_audio_server as \
+        s2a_cli
     from audio_sheet_retrieval_tpu_torch.ops import windows as win
-    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
     from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
     from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
         load_any_checkpoint,
@@ -318,8 +373,7 @@ def phase_serving(torch, kernel_stats):
                                      device=dev)
     torch.cuda.synchronize()
 
-    topk_gallery.launches = 0
-    win.gather_feature_windows.launches = 0
+    zero_launches()
     run = {}
     for arm, fullconv in (("exact", False), ("fullconv", True)):
         t0 = time.perf_counter()
@@ -345,8 +399,14 @@ def phase_serving(torch, kernel_stats):
                     os.path.join(tmp, "sheet_db.pkl"), "--init_sheet_db",
                     "--full_eval"] + (["--fused"] if fused else [])
             cli_ranks[fused] = [int(r) for r in cli.main(argv)]
-    launches = {"topk_gallery": topk_gallery.launches,
-                "gather_feature_windows": win.gather_feature_windows.launches}
+        s2a_ranks = {}
+        for fused in (False, True):
+            argv = ["--data", "synthetic", "--n_test_pieces", "8",
+                    "--param_file", ckpt, "--db_file",
+                    os.path.join(tmp, "audio_db.pkl"), "--init_audio_db",
+                    "--full_eval"] + (["--fused"] if fused else [])
+            s2a_ranks[fused] = [int(r) for r in s2a_cli.main(argv)]
+    launches = read_launches()
 
     exact_gal, exact = run["exact"]
     fc_gal, fc = run["fullconv"]
@@ -372,23 +432,271 @@ def phase_serving(torch, kernel_stats):
                        win.gather_feature_windows_plain(plane, starts_half,
                                                         50))
     assert fc["n"] == 60 and fc["rank1"] >= 59, fc["rank1"]
+    # gather_half (windows cut from the strip's half plane): the standard
+    # path's embeddings bit for bit at even window starts
+    even = st - st % 2
+    half_err = float((win.embed_strip_windows(params, strip, even, cfg, 160,
+                                              gather_half=True)
+                      - win.embed_strip_windows(params, strip, even, cfg,
+                                                160)).abs().max())
+    assert half_err == 0.0, f"gather_half differs by {half_err}"
     # cosine to the per-window build: reported, not bounded (the JAX
     # package's fullconv arm sits as far from it on this checkpoint)
     cos = (fc_gal.gallery_n * exact_gal.gallery_n).sum(1)
     emit("fullconv", max_abs_err_vs_plain_gather_route=fc_err,
          cosine_to_exact_min=float(cos.min()),
          cosine_to_exact_median=float(cos.median()), rank1=fc["rank1"],
-         rank1_exact=exact["rank1"], gather_bit_identical=True)
+         rank1_exact=exact["rank1"], gather_bit_identical=True,
+         gather_half_bit_identical=True)
 
     assert cli_ranks[False] == cli_ranks[True], cli_ranks
+    assert s2a_ranks[False] == s2a_ranks[True], s2a_ranks
     emit("cli", n_test_pieces=8, ranks=cli_ranks[True],
-         ranks_equal_fused=True)
+         ranks_equal_fused=True, s2a_ranks=s2a_ranks[True],
+         s2a_ranks_equal_fused=True, launches=launches)
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+    ctx = dict(dev=dev, cfg=cfg, params=params, ckpt=ckpt, images=images,
+               specs=specs, gallery=exact_gal)
+    return ctx, launches
 
+
+# --- phases 7-9: sheet -> audio, streaming, raw audio ---------------------------
+
+# rank<=1 of the JAX package itself on phase 7's corpus and checkpoint: its
+# device audio-DB build (u16) and detect_performance (the host chain, whose
+# votes equal its fused sheet query's: tests/test_server.py), 25 candidates,
+# 100 windows a strip, ties counted against the true piece; run once on the
+# CPU with jax 0.9.0 (PERF.md, Findings)
+JAX_S2A_RANK1 = 19
+STREAM_VOTES_ATOL = 1e-9   # the JAX test's bound: identical vote histograms
+MULAW_VOTES_ATOL = 0.05    # tests/test_server.py's mu-law jitter bound
+
+
+def pessimistic_rank(shares: dict, names, true_name) -> int:
+    """Rank of ``true_name`` with every tie counted against it (pieces
+    without a vote have share 0)."""
+    mine = shares.get(true_name, 0.0)
+    return sum(1 for n in names if shares.get(n, 0.0) >= mine)
+
+
+def make_server(ctx):
+    from audio_sheet_retrieval_tpu_torch.retrieval.server import (
+        AudioSheetServer,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        RetrievalWrapper,
+    )
+
+    srv = AudioSheetServer(device=ctx["dev"])
+    srv.initialize_embedding_network(RetrievalWrapper(
+        ctx["cfg"], params=ctx["params"], device=ctx["dev"]))
+    return srv
+
+
+def with_sheet_gallery(srv, ctx, codes=None, ids=None):
+    """Attach phase 4's exact gallery (or the given codes and labels)."""
+    gal = ctx["gallery"]
+    srv.sheet_snippet_codes = gal.gallery_n if codes is None else codes
+    srv.sheet_snippet_ids = gal.ids if ids is None else ids
+    srv.id_to_piece = {p: "piece_%03d" % p
+                       for p in range(len(ctx["images"]))}
+    srv._refresh_sheet_gallery()
+    return srv
+
+
+def phase_s2a(torch, ctx):
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
+        topk_gallery_plain,
+    )
+    from audio_sheet_retrieval_tpu_torch.ops.windows import (
+        embed_strip_windows,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.server import (
+        linspace_starts,
+    )
+
+    images, specs, cfg = ctx["images"], ctx["specs"], ctx["cfg"]
+    names = ["piece_%03d" % p for p in range(len(images))]
+    srv = make_server(ctx)
+    srv.initialize_audio_db_from_specs_device(names[:2], specs[:2])  # warm
+    srv.detect_performance_from_sheet(images[0], top_k=2, n_candidates=25)
+    torch.cuda.synchronize()
+
+    zero_launches()
+    t0 = time.perf_counter()
+    srv.initialize_audio_db_from_specs_device(names, specs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ranks, lat = [], []
+    for p, name in enumerate(names):
+        t0 = time.perf_counter()
+        result, votes = srv.detect_performance_from_sheet(
+            images[p], top_k=len(names), n_candidates=25)
+        lat.append(time.perf_counter() - t0)
+        ranks.append(pessimistic_rank(dict(zip(result, votes)), names, name))
+    launches = read_launches()
+    assert launches["topk_gallery"] > 0, "sheet -> audio ran no top-k kernel"
+
+    gal = srv._audio_gallery
+    plain = []
+    for p, im in enumerate(images):
+        strip = torch.from_numpy(im).to(ctx["dev"])
+        codes = embed_strip_windows(
+            ctx["params"], strip, linspace_starts(im.shape[1], 200, 100),
+            cfg, 160)
+        _, idx = topk_gallery_plain(codes, gal.gallery_n, 25)
+        counts = torch.bincount(gal.ids_device[idx].reshape(-1),
+                                minlength=len(names)).cpu().numpy()
+        plain.append(int((counts >= counts[p]).sum()))
+    assert plain == ranks, "plain top-k replay ranks differ"
+    rank1 = sum(r <= 1 for r in ranks)
+    rank5 = sum(r <= 5 for r in ranks)
+    emit("s2a", audio_rows=gal.n, build_s=build_s,
+         audio_emb_per_s=gal.n / build_s, rank1=rank1, rank5=rank5,
+         n=len(ranks), jax_cpu_rank1=JAX_S2A_RANK1,
+         query_p50_ms=float(np.percentile(lat, 50) * 1000),
+         plain_replay_ranks_equal=True, launches=launches)
+    assert rank1 >= JAX_S2A_RANK1 - 1, (rank1, JAX_S2A_RANK1)
+    return launches
+
+
+def phase_streaming(torch, ctx, pieces=(0, 17, 42), n_frames=400):
+    srv = with_sheet_gallery(make_server(ctx), ctx)
+    kw = dict(top_k=5, n_candidates=25)
+    srv.run_device_stream(ctx["specs"][0][:, :48], **kw)  # warm-up
+    srv.run(ctx["specs"][0][:, :48], on_update=lambda *a: None, **kw)
+    torch.cuda.synchronize()
+
+    zero_launches()
     rows = []
-    replaces = {"topk_gallery": "audio_sheet_retrieval_tpu/ops/topk_gallery.py:45",
-                "gather_feature_windows": "audio_sheet_retrieval_tpu/ops/windows.py:84"}
+    for p in pieces:
+        spec = ctx["specs"][p][:, :n_frames]
+        out = {}
+        for mode, chunk in (("chunk8", 8), ("per_frame", 1)):
+            t0 = time.perf_counter()
+            rank, votes, _ = srv.run_device_stream(spec, chunk=chunk, **kw)
+            out[mode] = (rank, votes, n_frames / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        rank, votes = srv.run(spec, on_update=lambda *a: None, **kw)
+        out["host_loop"] = (rank, votes, n_frames / (time.perf_counter()
+                                                     - t0))
+        diffs = {m: float(np.abs(np.asarray(out[m][1])
+                                 - np.asarray(votes)).max())
+                 for m in ("chunk8", "per_frame")}
+        rows.append(dict(piece=p, top1={m: v[0][0] for m, v in out.items()},
+                         fps={m: v[2] for m, v in out.items()},
+                         max_vote_diff_vs_host_loop=diffs,
+                         rankings_equal={m: out[m][0] == rank
+                                         for m in ("chunk8", "per_frame")}))
+        emit("streaming", **rows[-1])
+    launches = read_launches()
+
+    # frames/s at chunk 8 against a 1,000,000-row random unit gallery
+    gen = torch.Generator(device=ctx["dev"]).manual_seed(1)
+    big = torch.randn(1_000_000, 32, generator=gen, device=ctx["dev"])
+    big = big / torch.linalg.vector_norm(big, dim=1, keepdim=True)
+    ids = np.random.default_rng(1).integers(0, len(ctx["images"]),
+                                            1_000_000)
+    big_srv = with_sheet_gallery(make_server(ctx), ctx, big, ids)
+    spec = ctx["specs"][pieces[0]][:, :n_frames]
+    big_srv.run_device_stream(spec[:, :48], **kw)  # warm-up
+    torch.cuda.synchronize()
+    before = read_launches()["topk_gallery"]
+    t0 = time.perf_counter()
+    big_srv.run_device_stream(spec, chunk=8, **kw)
+    fps_1m = n_frames / (time.perf_counter() - t0)
+    launches["topk_gallery"] += read_launches()["topk_gallery"] - before
+    emit("streaming", gallery_rows=1_000_000, chunk=8, frames=n_frames,
+         fps=fps_1m, launches=launches)
+    assert launches["topk_gallery"] > 0, "streaming ran no top-k kernel"
+    for row in rows:
+        assert row["rankings_equal"]["per_frame"], row
+        assert row["max_vote_diff_vs_host_loop"]["per_frame"] \
+            <= STREAM_VOTES_ATOL, row
+        assert row["rankings_equal"]["chunk8"], row
+        assert row["max_vote_diff_vs_host_loop"]["chunk8"] \
+            <= STREAM_VOTES_ATOL, row
+    return launches
+
+
+def golden_chirp():
+    """The 5 s chirp of tests/test_golden.py."""
+    t = np.arange(22050 * 5) / 22050
+    return (0.4 * np.sin(2 * np.pi * (220 + 80 * t) * t) * 32767
+            ).astype(np.int16)
+
+
+def phase_audio(torch, ctx):
+    from audio_sheet_retrieval_tpu import assets
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.ops.audio import AudioProcessor
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        load_any_checkpoint,
+    )
+
+    dev, cfg = ctx["dev"], ctx["cfg"]
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "golden", "reference_embeddings.npz"))
+    chirp = golden_chirp()
+    proc = AudioProcessor(device=dev)
+    spec = proc.process(chirp)
+    golden_err = float(np.abs(spec[:, :300] - golden["spec"]).max())
+    host_err = float(np.abs(spec - proc.process_host(chirp)).max())
+    tut = load_any_checkpoint(assets.tutorial_checkpoint_path(), cfg,
+                              device=dev)
+    exc = np.stack([spec[:, i * 6:i * 6 + 42] for i in range(8)])[:, None]
+    codes = cca_model.embed_view2(tut, torch.from_numpy(exc).to(dev), cfg)
+    codes_err = float(np.abs(codes.cpu().numpy()
+                             - golden["spec_codes"]).max())
+
+    srv = with_sheet_gallery(make_server(ctx), ctx)
+    kw = dict(top_k=5, n_candidates=25)
+    srv.detect_score_from_audio(chirp, **kw)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    got = srv.detect_score_from_audio(chirp, **kw)
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        srv.detect_score_from_audio(chirp, **kw)
+        lat.append(time.perf_counter() - t0)
+    launches = read_launches()
+    want = srv.detect_score(proc.process(chirp), **kw)
+    n = min(len(got[1]), len(want[1]))
+    vote_err = float(np.abs(got[1][:n] - want[1][:n]).max())
+    emit("audio", golden_spec_max_abs_err=golden_err,
+         process_host_max_abs_err=host_err,
+         golden_spec_codes_max_abs_err=codes_err,
+         top1=got[0][0], top1_host_chain=want[0][0],
+         votes=[float(v) for v in got[1]],
+         votes_host_chain=[float(v) for v in want[1]],
+         max_vote_diff=vote_err,
+         mulaw_query_p50_ms=float(np.percentile(lat, 50) * 1000),
+         launches=launches)
+    assert golden_err <= 2e-5, golden_err
+    assert host_err <= 2e-4, host_err
+    assert codes_err <= 2e-4, codes_err
+    assert launches["topk_gallery"] > 0, "the audio query ran no top-k kernel"
+    assert got[0][0] == want[0][0], (got, want)
+    assert vote_err <= MULAW_VOTES_ATOL, vote_err
+    return launches
+
+
+def main() -> int:
+    torch = require_cuda()
+    smi = phase_device(torch)
+    phase_build()
+    kernel_stats = phase_kernels(torch)
+    ctx, launches = phase_serving(torch)
+    for phase in (phase_s2a, phase_streaming, phase_audio):
+        for name, n in phase(torch, ctx).items():
+            launches[name] += n
+    rows = []
+    replaces = {"topk_gallery":
+                "audio_sheet_retrieval_tpu/ops/topk_gallery.py:45",
+                "gather_feature_windows":
+                "audio_sheet_retrieval_tpu/ops/windows.py:84"}
     sources = {"topk_gallery": "topk_gallery.cu",
                "gather_feature_windows": "feature_windows.cu"}
     for name, (err, ms, plain_ms) in kernel_stats.items():
@@ -397,15 +705,6 @@ def phase_serving(torch, kernel_stats):
                      + sources[name],
                      "replaces": replaces[name], "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    return rows
-
-
-def main() -> int:
-    torch = require_cuda()
-    smi = phase_device(torch)
-    phase_build()
-    kernel_stats = phase_kernels(torch)
-    rows = phase_serving(torch, kernel_stats)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

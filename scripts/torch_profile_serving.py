@@ -8,9 +8,13 @@ serving checkpoint at full width (``mutopia_ccal_cont_rsz``, float32, TF32
 off), the 60-piece synthetic corpus with onset-aligned windows (about
 12,000 gallery rows), 100-excerpt piece-ID queries with 25 candidates.
 
-Three windows run under ``torch.profiler`` (CPU + CUDA activities), after a
-warm-up: the exact gallery build, the fullconv gallery build, and ``--queries``
-piece-ID queries. For each window it reports
+Five windows run under ``torch.profiler`` (CPU + CUDA activities), after a
+warm-up: the exact gallery build, the fullconv gallery build, ``--queries``
+piece-ID queries (audio -> sheet, spectrogram upload), ``--queries``
+sheet -> audio queries (raw strip upload, against the corpus's audio DB
+built on the card) and ``--stream_frames`` frames of streaming in chunks
+of 8 (``StreamingRetriever.push_frames`` against the exact gallery). For
+each window it reports
 
 - ``wall_ms``: host clock from the window's start to a synchronise at its
   end (the profiler's own host overhead included);
@@ -23,8 +27,9 @@ piece-ID queries. For each window it reports
 
 Then, without the profiler, the host-clock time of each stage of one query
 (host quantization, upload, excerpt embedding, top-k, vote + download),
-synchronised between stages, and the unprofiled query p50 (upload to
-downloaded counts, the ``p50_ms`` of ``retrieval.accuracy``).
+synchronised between stages, the unprofiled query p50 (upload to
+downloaded counts, the ``p50_ms`` of ``retrieval.accuracy``), and the
+unprofiled p50 of a sheet -> audio query and of a chunk-8 push.
 
 Each window prints one JSON line; the whole result goes to ``--out``
 (default ``build/profile/profile_serving.json``). Without a CUDA card the
@@ -97,6 +102,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=os.path.join(
         REPO, "build", "profile", "profile_serving.json"))
     ap.add_argument("--queries", type=int, default=60)
+    ap.add_argument("--stream_frames", type=int, default=400)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is false; this profile "
@@ -109,8 +115,16 @@ def main(argv=None) -> int:
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
     from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
     from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
+        DeviceGallery,
         embed_spec_excerpts,
         make_fused_piece_query_spec,
+        make_fused_sheet_query,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.server import (
+        linspace_starts,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.streaming import (
+        StreamingRetriever,
     )
     from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
         load_any_checkpoint,
@@ -157,7 +171,53 @@ def main(argv=None) -> int:
     q["per_query_wall_ms"] = q["wall_ms"] / len(jobs)
     q["per_query_device_busy_ms"] = q["device_busy_ms"] / len(jobs)
     result["queries"] = q
-    for name in ("build_exact", "build_fullconv", "queries"):
+
+    # sheet -> audio: the corpus's audio DB (u16 upload, stride 10 frames)
+    embed_q = win.make_spec_embedder_q(params, cfg, device=dev)
+    audio_codes, audio_ids = [], []
+    for p, spec in enumerate(specs):
+        payload, scale = win.spec_quantize(spec, bits=16)
+        st = win.stride_starts(spec.shape[1], 42, 10)
+        audio_codes.append(embed_q(payload, scale, st))
+        audio_ids.append(np.full(len(st), p, np.int64))
+    audio_gal = DeviceGallery(torch.cat(audio_codes),
+                              np.concatenate(audio_ids), device=dev)
+    sheet_query = make_fused_sheet_query(params, cfg, audio_gal, len(images),
+                                         n_candidates=25)
+    strips = [(im, linspace_starts(im.shape[1], 200, 100))
+              for im in images[:args.queries]]
+    for im, st in strips[:5]:
+        sheet_query(im, st).cpu()
+
+    def run_sheet_queries():
+        for im, st in strips:
+            sheet_query(im, st).cpu()
+
+    q = profiled(run_sheet_queries)
+    q["per_query_wall_ms"] = q["wall_ms"] / len(strips)
+    q["per_query_device_busy_ms"] = q["device_busy_ms"] / len(strips)
+    result["s2a_queries"] = q
+
+    # streaming, chunks of 8 frames against the exact gallery
+    stream = StreamingRetriever(params, cfg, gallery.gallery_n, gallery.ids,
+                                n_candidates=25,
+                                spec_max=float(specs[0].sum(axis=0).max()),
+                                device=dev)
+    frames = specs[0][:, :args.stream_frames].T
+    stream.push_frames(frames[:8])
+
+    def run_stream():
+        for c0 in range(0, len(frames) - 7, 8):
+            stream.push_frames(frames[c0:c0 + 8])
+
+    stream.reset()
+    q = profiled(run_stream)
+    n_push = len(range(0, len(frames) - 7, 8))
+    q["per_push_wall_ms"] = q["wall_ms"] / n_push
+    q["per_push_device_busy_ms"] = q["device_busy_ms"] / n_push
+    result["stream_chunk8"] = q
+    for name in ("build_exact", "build_fullconv", "queries", "s2a_queries",
+                 "stream_chunk8"):
         print(name, json.dumps(result[name]), flush=True)
 
     # per-stage host clock of one query, synchronised between stages
@@ -190,8 +250,28 @@ def main(argv=None) -> int:
     result["query_stages_p50_ms"] = {k: float(np.median(v))
                                      for k, v in stages.items()}
     result["query_p50_ms_unprofiled"] = float(np.median(p50))
+
+    def p50_ms(fn, items):
+        times = []
+        for item in items:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(item)
+            times.append((time.perf_counter() - t0) * 1000.0)
+        return float(np.median(times))
+
+    result["s2a_query_p50_ms_unprofiled"] = p50_ms(
+        lambda job: sheet_query(*job).cpu(), strips)
+    stream.reset()
+    result["stream_push8_p50_ms_unprofiled"] = p50_ms(
+        lambda c0: stream.push_frames(frames[c0:c0 + 8]),
+        range(0, len(frames) - 7, 8))
     print("query_stages", json.dumps(result["query_stages_p50_ms"]),
-          "query_p50_ms_unprofiled", result["query_p50_ms_unprofiled"])
+          "query_p50_ms_unprofiled", result["query_p50_ms_unprofiled"],
+          "s2a_query_p50_ms_unprofiled",
+          result["s2a_query_p50_ms_unprofiled"],
+          "stream_push8_p50_ms_unprofiled",
+          result["stream_push8_p50_ms_unprofiled"])
     print(smi)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fp:

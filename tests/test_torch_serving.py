@@ -37,6 +37,7 @@ from audio_sheet_retrieval_tpu_torch.retrieval.server import (
 from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
     RetrievalWrapper as TorchWrapper,
 )
+import torch_port_helpers  # noqa: F401  (one torch thread a test process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH_CKPT = assets.asset_path("synth_serving_ckpt.pkl")
@@ -196,16 +197,57 @@ def test_cli_full_eval_matches_jax_server(synth, tmp_path):
     assert tcli.main(common[:-2] + ["--full_eval"]) == ranks_host
 
 
-def test_cli_demo_and_unported_modes(tmp_path):
+def test_cli_demo_and_unported_modes(tmp_path, capsys):
+    """The single-piece demo streams, through the device stream by default
+    and the host loop with --host_stream; the MSMD source and the
+    unported precisions raise."""
     common = ["--device", "cpu", "--n_test_pieces", "2", "--param_file",
-              SYNTH_CKPT, "--db_file", str(tmp_path / "db.pkl")]
-    assert tcli.main(common + ["--no_stream"]) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #5"):
-        tcli.main(common)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(common + ["--data", "mutopia", "--no_stream"])
+              SYNTH_CKPT, "--db_file", str(tmp_path / "db.pkl"),
+              "--running_frames", "50"]
+    assert tcli.main(common) is None
+    assert "device streaming at" in capsys.readouterr().out
+    assert tcli.main(common + ["--host_stream"]) is None
+    assert "Server is running at" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="msmd"):
+        tcli.main(common + ["--data", "mutopia"])
     with pytest.raises(NotImplementedError, match="conv_precision"):
-        tcli.main(common + ["--conv_precision", "high", "--no_stream"])
+        tcli.main(common + ["--conv_precision", "high"])
+
+
+def test_cli_npz_source_matches_synthetic(tmp_path):
+    """--data npz:<dir> with a --train_split yaml reads the pieces that
+    cli/export_msmd_npz.py writes; the synthetic corpus saved that way
+    gives the synthetic source's ranks, in both directions, and
+    --dump_results writes them as retrieval_<tag>_{A2S,S2A}.yaml beside the
+    params file."""
+    import yaml
+
+    from audio_sheet_retrieval_tpu_torch.cli import sheet_audio_server as s2a
+
+    names, loader, _ = tcli.make_piece_source("synthetic", {"test": [0] * 3})
+    npz_dir = tmp_path / "npz"
+    npz_dir.mkdir()
+    for n in names:
+        image, specs, o2cs = loader(n)
+        np.savez(npz_dir / (n + ".npz"), image=image, spec_0=specs[0],
+                 o2c_0=o2cs[0])
+    split = tmp_path / "split.yaml"
+    split.write_text(yaml.safe_dump({"test": names}))
+    params = tmp_path / "exp" / "params_split.pkl"
+    params.parent.mkdir()
+    shutil.copy(SYNTH_CKPT, params)
+    for cli, db, suffix in ((tcli, "sheet", "A2S"), (s2a, "audio", "S2A")):
+        common = ["--device", "cpu", "--param_file", str(params),
+                  "--db_file", str(tmp_path / (db + ".pkl")),
+                  "--init_%s_db" % db, "--full_eval"]
+        synth = cli.main(common + ["--data", "synthetic", "--n_test_pieces",
+                                   "3"])
+        got = cli.main(common + ["--data", "npz:%s" % npz_dir,
+                                 "--train_split", str(split),
+                                 "--dump_results"])
+        assert got == synth
+        dumped = params.parent / ("retrieval_split_%s.yaml" % suffix)
+        assert yaml.safe_load(dumped.read_text()) == [int(r) for r in got]
 
 
 NO_JAX_SCRIPT = r"""
@@ -236,6 +278,15 @@ srv.initialize_embedding_network(w)
 srv.initialize_sheet_db_from_imges_device(["a", "b"], images)
 srv.detect_score_from_spec(specs[0], n_samples=4)
 srv.detect_score(specs[0], n_samples=4)
+from audio_sheet_retrieval_tpu_torch.ops.audio import AudioProcessor
+tone = (np.sin(np.arange(3 * 22050) * 0.1) * 9000).astype(np.int16)
+AudioProcessor(device="cpu").process(tone)
+srv.detect_score_from_audio(tone, n_samples=4)
+srv.run_device_stream(specs[0][:, :50], max_frames=50)
+srv.run(specs[0][:, :45], on_update=lambda *a: None)
+srv.initialize_audio_db_from_specs_device(["a", "b"], specs)
+srv.detect_performance_from_sheet(images[0], n_samples=4)
+srv.detect_performance(images[0], n_samples=4)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 print("JAX_MODULES", loaded)
 """

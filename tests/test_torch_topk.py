@@ -42,18 +42,32 @@ def test_topk_matches_jax_pallas(n, qn, k):
 
 
 def test_topk_rejects_bad_k():
+    """Only k outside [0, N] is refused, on the card as on the CPU: the
+    kernel keeps lists longer than KSMEM in global memory."""
     g, q = torch.zeros(100, 8), torch.zeros(2, 8)
     for k in (101, 200, -1):
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="k="):
             tk.topk_gallery(q, g, k)
-    # the kernel's list width bounds k on the card; the plain version has
-    # no bound beyond the gallery size
-    tk.check_kernel_k(tk.KMAX)
-    with pytest.raises(ValueError, match="KMAX"):
-        tk.check_kernel_k(tk.KMAX + 1)
     assert tk.topk_gallery(q, g, 100)[1].shape == (2, 100)
+    assert tk.topk_gallery(q, g, 0)[1].shape == (2, 0)
     with pytest.raises(ValueError):
         tk.topk_gallery(torch.zeros(2, 8), torch.zeros(300, 9), 5)
+
+
+def test_topk_k_equals_n_matches_jax_gallery():
+    """k = N above KSMEM (the lists the kernel keeps in global memory on
+    the card): every row, in the JAX gallery's order."""
+    n = tk.KSMEM + 476
+    q, g = _both(n, 3, 16, 17)
+    s, i = tk.topk_gallery(torch.from_numpy(q), torch.from_numpy(g), n)
+    assert i.shape == (3, n)
+    for r in range(3):
+        assert sorted(i[r].tolist()) == list(range(n))
+    assert bool((s[:, 1:] <= s[:, :-1]).all())
+    jd, ji = JaxDeviceGallery(g).topk(q, n)
+    d, idx = DeviceGallery(g, device="cpu").topk(q, n)
+    np.testing.assert_allclose(d, jd, atol=1e-5)
+    np.testing.assert_array_equal(idx, ji)
 
 
 def test_topk_duplicate_rows_lower_index_first():

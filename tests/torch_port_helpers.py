@@ -3,9 +3,16 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from audio_sheet_retrieval_tpu.models import cca_model as jcca
 from audio_sheet_retrieval_tpu.utils import io as juio
+
+# pytest-xdist runs test files side by side, one process each; a torch
+# intra-op thread pool as wide as the machine in every one of them
+# oversubscribes the cores many times over (a 1.6 s test took 130 s in a
+# six-worker run), so each test process computes torch ops on one thread
+torch.set_num_threads(1)
 
 
 def random_params(cfg, seed):
@@ -36,3 +43,13 @@ def random_params(cfg, seed):
            for k in ("mean1", "mean2")})
     np_tree = jcca.ModelParams(view(tree.view1), view(tree.view2), cca)
     return jax.tree.map(jnp.asarray, np_tree), np_tree
+
+
+def identity_cca_params(cfg, seed):
+    """JAX init_model with an identity CCA projection, as the JAX server
+    tests build it (encoder distances stay meaningful) -> (JAX ModelParams,
+    the same tree with numpy leaves)."""
+    params = jcca.init_model(jax.random.PRNGKey(seed), cfg)
+    eye = jnp.eye(cfg.dim_latent)
+    params = params._replace(cca=params.cca._replace(U=eye, V=eye))
+    return params, juio.to_numpy_tree(params)
