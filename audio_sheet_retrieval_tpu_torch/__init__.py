@@ -3,9 +3,11 @@ audio_sheet_retrieval_tpu for NVIDIA Hopper GPUs.
 
 The JAX package beside it is the reference; module names mirror it
 (``audio_sheet_retrieval_tpu/X/y.py`` <-> ``audio_sheet_retrieval_tpu_torch/
-X/y.py``). This package imports ``torch`` and never ``jax``. The only code it
-shares with the JAX package are framework-free modules: ``models.configs``,
-``data.pools``, ``data.iterators``, ``data.synthetic`` and ``assets``.
+X/y.py``). This package imports ``torch`` and never ``jax``, and nothing of
+the JAX package: it keeps its own copies of the framework-free modules it
+needs (``models.configs``, ``ops.filterbank``, ``data.pools``,
+``data.iterators``, ``data.synthetic``, ``data.msmd``, ``config``,
+``assets``), and reads the vendored weight files by path.
 
 The serving path (piece identification, audio -> sheet) is ported: checkpoint
 import, the twin encoders + CCA head, strip / spectrogram embedders, the

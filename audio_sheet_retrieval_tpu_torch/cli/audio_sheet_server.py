@@ -11,8 +11,7 @@ Sources: ``--data synthetic`` and ``--data npz:<dir>`` (one
 ``<piece>.npz`` per test piece of ``--train_split``, as
 ``cli/export_msmd_npz.py`` writes them); the stored spectrograms act as
 the performance recordings. ``--data mutopia`` raises
-``NotImplementedError``: it needs the ``msmd`` package, and the JAX
-package's MSMD loader computes missing spectrograms with the JAX DSP.
+``NotImplementedError``: it needs the ``msmd`` package.
 yaml is imported only by the options that read or write yaml files.
 """
 
@@ -24,7 +23,10 @@ import os
 
 import numpy as np
 
-from audio_sheet_retrieval_tpu.models.configs import get_model_config
+from audio_sheet_retrieval_tpu_torch import config as cfg_mod
+from audio_sheet_retrieval_tpu_torch.data import synthetic
+from audio_sheet_retrieval_tpu_torch.data.msmd import load_piece_npz
+from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
 from audio_sheet_retrieval_tpu_torch.retrieval.server import AudioSheetServer
 from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import RetrievalWrapper
 from audio_sheet_retrieval_tpu_torch.utils.logging import BColors
@@ -36,8 +38,6 @@ def make_piece_source(data: str, split: dict):
     """-> (test piece names, loader(name) -> (image, specs, o2c_maps),
     query_spec(name) -> full spectrogram)."""
     if data == "synthetic":
-        from audio_sheet_retrieval_tpu.data import synthetic
-
         names = ["synthetic_%03d" % i for i in range(len(split["test"]))]
         images, specs, o2cs = synthetic.make_piece_list(
             25, len(names), n_onsets=60)
@@ -45,8 +45,6 @@ def make_piece_source(data: str, split: dict):
                  for i, n in enumerate(names)}
         return (names, lambda n: table[n], lambda n: table[n][1][0])
     if data.startswith("npz:"):
-        from audio_sheet_retrieval_tpu.data.msmd import load_piece_npz
-
         npz_dir = data[4:]
         names = split["test"]
 
@@ -57,9 +55,8 @@ def make_piece_source(data: str, split: dict):
     if data == "mutopia":
         raise NotImplementedError(
             "--data mutopia is not ported (ROADMAP Queue 1): it needs the "
-            "msmd package, and the shared MSMD loader falls back to the JAX "
-            "DSP; export the pieces with cli/export_msmd_npz.py and pass "
-            "--data npz:<dir>")
+            "msmd package; export the pieces with cli/export_msmd_npz.py "
+            "and pass --data npz:<dir>")
     raise ValueError(f"unknown data source {data}")
 
 
@@ -67,8 +64,6 @@ def load_split(train_split, n_test_pieces):
     """{"test": piece names}: the yaml split, or n placeholders (the
     synthetic source only counts them)."""
     if train_split:
-        from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
-
         return cfg_mod.load_split(train_split)
     return {"test": ["x"] * (n_test_pieces or 8)}
 
@@ -77,8 +72,6 @@ def experiment_tag(args):
     """`<split-stem>_<config-stem>`, or None without a split or config."""
     if not (args.train_split or args.config):
         return None
-    from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
-
     return cfg_mod.compile_tag(args.train_split, args.config)
 
 
@@ -86,8 +79,6 @@ def param_file_for(args, model_cfg, tag):
     """--param_file, or the experiment's params file under --exp_root."""
     if args.param_file is not None:
         return args.param_file
-    from audio_sheet_retrieval_tpu import config as cfg_mod  # yaml
-
     exp_name = model_cfg.name + ("_est_UV" if args.estimate_UV else "")
     exp_root = args.exp_root or cfg_mod.EXP_ROOT
     name = "params.pkl" if tag is None else "params_%s.pkl" % tag
@@ -125,8 +116,6 @@ def evaluate(pieces, detect, what: str, dump_file: str, dump_results: bool,
 
     if dump_results:
         import yaml
-
-        from audio_sheet_retrieval_tpu import config as cfg_mod
 
         res_file = cfg_mod.derive_result_path(dump_file, "retrieval_",
                                               suffix)

@@ -22,7 +22,7 @@ import argparse
 import dataclasses
 import os
 
-from audio_sheet_retrieval_tpu.models.configs import get_model_config
+from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
 from audio_sheet_retrieval_tpu_torch.cli.audio_sheet_server import (
     evaluate,
     experiment_tag,

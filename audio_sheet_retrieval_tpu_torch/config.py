@@ -1,0 +1,56 @@
+"""Experiment settings the CLIs read.
+
+The port's own copy of the parts of the JAX package's ``config.py`` that
+the servers use: the experiment root, the split yaml, the
+``<split>_<config>`` artifact tag (reference:run_train.py:44-48) and the
+result-file naming. ``yaml`` is imported only by the function that reads
+yaml, so the rest works where ``pyyaml`` is not installed.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+EXP_ROOT = os.environ.get(
+    "ASR_TPU_EXP_ROOT",
+    os.path.join(os.path.expanduser("~"), "experiments", "asr_tpu"))
+
+
+def load_split(split_file: str) -> Dict[str, List[str]]:
+    """{train, valid, test} piece-name lists (reference mutopia_data.py:13-18)."""
+    import yaml
+
+    with open(split_file, "rb") as fp:
+        return yaml.safe_load(fp)
+
+
+def derive_result_path(param_file: str, prefix: str, suffix: str) -> str:
+    """``.../params_<tag>.<ext> -> .../<prefix><tag>_<suffix>`` (the
+    reference's artifact naming, reference run_eval.py:196-212, safe for any
+    checkpoint extension). Results for a vendored-asset checkpoint go to the
+    current directory, never into the assets."""
+    from audio_sheet_retrieval_tpu_torch.assets import assets_dir
+
+    d, base = os.path.split(os.path.abspath(param_file))
+    stem = os.path.splitext(base)[0]
+    if stem.startswith("params_"):
+        stem = stem[len("params_"):]
+    elif stem == "params":
+        stem = ""
+    name = prefix + (stem + "_" if stem else "") + suffix
+    if os.path.commonpath([d, assets_dir()]) == assets_dir():
+        d = os.getcwd()
+    return os.path.join(d, name)
+
+
+def compile_tag(train_split: Optional[str], config: Optional[str]) -> Optional[str]:
+    """`<split-stem>_<config-stem>` artifact tag (reference run_train.py:44-48)."""
+    if train_split is None and config is None:
+        return None
+    parts = []
+    if train_split is not None:
+        parts.append(os.path.splitext(os.path.basename(train_split))[0])
+    if config is not None:
+        parts.append(os.path.splitext(os.path.basename(config))[0])
+    return "_".join(parts)

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import encoder as enc
 from audio_sheet_retrieval_tpu_torch.ops.cca import CCAState
 

@@ -22,7 +22,7 @@ from typing import Any, List, Sequence
 import numpy as np
 import torch
 
-from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import encoder as enc
 from audio_sheet_retrieval_tpu_torch.models.cca_model import ModelParams
 from audio_sheet_retrieval_tpu_torch.ops.cca import CCAState
@@ -39,7 +39,7 @@ def load_lasagne_pickle(path: str) -> List[np.ndarray]:
     """Load a py2 lasagne parameter pickle (latin1), or the repo's
     raw-array .npz asset form of the same checkpoint."""
     if path.endswith(".npz"):
-        from audio_sheet_retrieval_tpu import assets
+        from audio_sheet_retrieval_tpu_torch import assets
 
         return [np.asarray(a, dtype=np.float32)
                 for a in assets.load_raw_arrays(path)]

@@ -35,10 +35,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of each source: name -> (argtypes, restype)
 SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
     "topk_gallery": {
-        # queries, gallery, Q, N, d, k, chunk, n_chunks, part_s, part_i,
-        # out_s, out_i, scr_s, scr_i, stream
-        "topk_gallery_f32": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                              _P, _P, _P, _P], _I),
+        # queries, gallery, Q, N, d, k, qbw, chunk, n_chunks, kp, smem1, s2,
+        # keys2, smem2, part_s, part_i, scores1, lists2_s, lists2_i, out_s,
+        # out_i, stream
+        "topk_gallery_f32": ([_P, _P] + [_I] * 12 + [_P] * 8, _I),
     },
     "feature_windows": {
         # plane, starts, N, C, H4, Wq, n_cols, elem_bytes, out, stream

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio_sheet_retrieval_tpu.ops import filterbank as fb
+from audio_sheet_retrieval_tpu_torch.ops import filterbank as fb
 from audio_sheet_retrieval_tpu_torch.models.encoder import pin_full_f32
 
 INT16_MAX = 32767.0
@@ -78,8 +78,9 @@ def _int_scale(dtype) -> float:
 class AudioProcessor:
     """Signal -> log-filterbank spectrogram.
 
-    ``process`` runs on ``device``; ``process_on_device`` on the device of
-    the signal it is given; ``process_host`` is numpy. The filterbank and
+    ``process`` runs on ``device``, which the caller names (there is no
+    default); ``process_on_device`` on the device of the signal it is
+    given; ``process_host`` is numpy. The filterbank and
     the window are built on the host once and copied to each device at
     first use.
     """
@@ -87,7 +88,7 @@ class AudioProcessor:
     def __init__(self, sample_rate: int = fb.SAMPLE_RATE,
                  frame_size: int = fb.FRAME_SIZE, fps: int = fb.FPS,
                  num_bands: int = fb.NUM_BANDS, fmin: float = fb.FMIN,
-                 fmax: float = fb.FMAX, *, device="cpu"):
+                 fmax: float = fb.FMAX, *, device):
         self.sample_rate = sample_rate
         self.frame_size = frame_size
         self.fps = fps
@@ -209,15 +210,3 @@ def resample(signal: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
         info = np.iinfo(dtype)
         out = np.clip(np.round(out), info.min, info.max)
     return out.astype(dtype)
-
-
-_default: Optional[AudioProcessor] = None
-
-
-def default_processor() -> AudioProcessor:
-    """The module's shared processor (reference constants; ``process`` on
-    the CPU, ``process_on_device`` on any device)."""
-    global _default
-    if _default is None:
-        _default = AudioProcessor()
-    return _default

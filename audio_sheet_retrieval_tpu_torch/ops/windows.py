@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import cca_model
 from audio_sheet_retrieval_tpu_torch.ops import _native
 from audio_sheet_retrieval_tpu_torch.ops.audio import INT16_MAX

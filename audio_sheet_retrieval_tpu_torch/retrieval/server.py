@@ -40,8 +40,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from audio_sheet_retrieval_tpu.data.pools import (
-    NO_AUGMENT,
+from audio_sheet_retrieval_tpu_torch.data.pools import (
     SHEET_CONTEXT,
     SPEC_BINS,
     SPEC_CONTEXT,
@@ -50,7 +49,7 @@ from audio_sheet_retrieval_tpu.data.pools import (
 )
 from audio_sheet_retrieval_tpu_torch.ops import windows as win
 from audio_sheet_retrieval_tpu_torch.ops.audio import (
-    default_processor,
+    AudioProcessor,
     num_frames_for,
     resample,
 )
@@ -178,6 +177,7 @@ class AudioSheetServer:
         self._fused_sheet_query = None
         self._fused_sheet_query_key = None
         self._stream_cache = None
+        self._processor: Optional[AudioProcessor] = None
 
     # -- model ----------------------------------------------------------------
 
@@ -208,8 +208,7 @@ class AudioSheetServer:
             self.id_to_piece[piece_idx] = piece
             image, specs, o2c = piece_loader(piece)
             pool = AudioScoreRetrievalPool(
-                [image], [specs], [o2c], data_augmentation=NO_AUGMENT,
-                shuffle=False,
+                [image], [specs], [o2c],
                 sheet_context=self.sheet_shape[1],
                 staff_height=self.sheet_shape[0],
                 spec_context=self.spec_shape[1])
@@ -294,8 +293,7 @@ class AudioSheetServer:
             self.id_to_perform[piece_idx] = piece
             image, specs, o2c = piece_loader(piece)
             pool = AudioScoreRetrievalPool(
-                [image], [specs], [o2c], data_augmentation=NO_AUGMENT,
-                shuffle=False,
+                [image], [specs], [o2c],
                 sheet_context=self.sheet_shape[1],
                 staff_height=self.sheet_shape[0],
                 spec_context=self.spec_shape[1])
@@ -456,7 +454,9 @@ class AudioSheetServer:
         (``gallery.make_fused_piece_query``); the host downloads one
         [n_pieces] count vector. Stereo is downmixed by averaging, other
         rates are resampled to the processor's."""
-        proc = default_processor()
+        if self._processor is None:
+            self._processor = AudioProcessor(device=self.device)
+        proc = self._processor
         n_pieces = max(self.id_to_piece) + 1
         key = (id(self._sheet_gallery), n_candidates, n_pieces)
         if self._fused_query_key != key:

@@ -22,7 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import cca_model
 from audio_sheet_retrieval_tpu_torch.ops.windows import (
     spec_dequantize_device,

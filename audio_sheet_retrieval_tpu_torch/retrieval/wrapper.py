@@ -17,8 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from audio_sheet_retrieval_tpu.data.iterators import batch_compute1
-from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.data.iterators import batch_compute1
+from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import cca_model, lasagne_import
 from audio_sheet_retrieval_tpu_torch.models.cca_model import ModelParams
 from audio_sheet_retrieval_tpu_torch.train.engine import (

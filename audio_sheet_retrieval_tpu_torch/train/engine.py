@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from audio_sheet_retrieval_tpu.models.configs import ModelConfig
+from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 
 
 def prepare_view1_device(x1: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -28,8 +28,8 @@ class _PortUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if (module, name) in _RENAMES:
             module, name = _RENAMES[(module, name)]
-        elif (module.split(".")[0] in ("jax", "jaxlib")
-              or module.startswith("audio_sheet_retrieval_tpu.")):
+        elif module.split(".")[0] in ("jax", "jaxlib",
+                                      "audio_sheet_retrieval_tpu"):
             raise pickle.UnpicklingError(
                 f"checkpoint holds {module}.{name}, which this package "
                 f"cannot load without jax")

@@ -11,11 +11,15 @@ exits non-zero):
    csrc`` with nvcc (ptxas register / shared-memory report).
 3. kernels: each kernel against its plain PyTorch version on the card
    (top-k: scores atol 1e-4, equal index sets, tie rule, NaN queries, k up
-   to 2048 and k = N, with lists in shared and in global memory, and every
-   shape it is timed at; gather: bit-identical, f32 and bf16), and each
-   one's median time beside the plain version's (CUDA events, after a
-   warm-up) at the serving shapes: Q = 100 excerpts, and the streaming
-   shapes Q = 1 and Q = 8.
+   to 20,000 and k = N, at the boundaries of its launch plan (query-block
+   widths, k <= 32 or above, d in {8, 32, 128}, N off the tile, scores in
+   shared and in global memory), and every shape it is timed at; gather:
+   bit-identical, f32 and bf16), and each one's median time beside the
+   plain version's, the least time the card could take (``bound_ms``:
+   bytes at 3.35 TB/s or float32 FMAs at 67 TFLOP/s, the larger) and, for
+   the top-k, one library call's (``torch.topk(q @ g.T, k)``), CUDA
+   events after a warm-up, at the serving shapes: Q = 100 excerpts, the
+   streaming shapes Q = 1 and Q = 8, and k = 1,024 and 2,048.
 4. main path: the vendored synthetic-corpus serving checkpoint at full
    width (``mutopia_ccal_cont_rsz``, f32), a 60-piece synthetic corpus,
    gallery built on the card, 100-excerpt piece-ID queries; rank<=1 >= 59/60
@@ -43,7 +47,9 @@ exits non-zero):
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-9; each of those phases must
 launch the top-k kernel, and the ``kernels`` line reports the sum over
-phases 4-9. The last line is ``{"ok": true, "device": {...}}``.
+phases 4-9, beside each kernel's times at the main path's shape (top-k:
+Q = 100, N = 12,000, k = 25; gather: one 6040-px strip). The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,11 @@ import time
 import numpy as np
 
 TOPK_ATOL = 1e-4   # kernel vs cuBLAS + sort: f32 sums in another order
+# the card's peak rates for bound_ms (NVIDIA's H100 SXM data sheet): device
+# memory, and float32 FMAs outside the tensor cores (the port pins f32 with
+# TF32 off, so kernel 1 scores on CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def emit(phase: str, **fields) -> None:
@@ -91,6 +102,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(nbytes: float, flops: float):
+    """-> (least milliseconds the card could take, "bytes" or
+    "operations"): each input read once, each output written once, at the
+    memory rate, against the operations at the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def topk_bound(q: int, n: int, d: int, k: int):
+    """Kernel 1: queries and gallery read, [Q, k] f32 + int64 written;
+    2 Q N d flops of scoring."""
+    return bound(4 * (q + n) * d + 12 * q * k, 2 * q * n * d)
+
+
+def gather_bound(c: int, h4: int, wq: int, n_cols: int, n: int,
+                 elem: int = 4):
+    """Kernel 2: the plane and the starts read, the windows written."""
+    return bound(elem * c * h4 * wq + 4 * n + elem * n * c * h4 * n_cols, 0)
 
 
 # --- phase 1-2 -----------------------------------------------------------------
@@ -163,7 +196,6 @@ def check_topk(torch, q, g, k):
 
 def phase_kernels(torch):
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
-        KSMEM,
         topk_gallery,
         topk_gallery_plain,
     )
@@ -193,11 +225,29 @@ def phase_kernels(torch):
              ("streaming", 1, 1_000_000, 32, 25),
              ("streaming", 8, 1_000_000, 32, 25),
              ("k128", 100, 100_000, 32, 128),
-             ("ksmem", 100, 100_000, 32, KSMEM),
-             ("ksmem", 3, 2000, 128, KSMEM),
-             # lists in global memory (k > KSMEM), up to k = N
+             ("k1024", 100, 100_000, 32, 1024),
+             ("k1024", 3, 2000, 128, 1024),
              ("k2048", 100, 100_000, 32, 2048),
              ("k=N", 8, 3000, 128, 3000), ("k=N", 5, 777, 32, 777)]
+    # the boundaries of the kernel's launch plan: Q around each query-block
+    # width (1, 8, 32; 64, 65, 100 and 129 fill several 32-query blocks),
+    # k around each selection's switch (k <= 32 in a warp's registers,
+    # above by radix select: a warp a query, or the whole CTA for one-query
+    # blocks) and sort size (a power of two), chunks shortened to keep an
+    # 8-query block (k = 2,048 and 2,049 at d = 32), d in {8, 32, 128}, N
+    # off the 128-row tile, and scores or sort areas too large for shared
+    # memory (kept in global memory: both passes' at k = 20,000, d = 32;
+    # pass 1's at k = 12,000, d = 128, whose merge reads the part lists from
+    # global memory)
+    cases += [("qblock", qn, 12_345, 32, 25)
+              for qn in (1, 8, 9, 32, 33, 64, 65, 100, 129)]
+    cases += [("klist", 16, 50_001, 32, k)
+              for k in (1, 32, 33, 127, 128, 129, 2048, 2049, 4096, 4097)]
+    cases += [("d", qn, 20_011, d, k) for d in (8, 128)
+              for qn, k in ((33, 25), (9, 1000), (1, 2049))]
+    cases += [("global lists", 2, 200_000, 32, 20_000),
+              ("global lists", 3, 100_000, 128, 12_000),
+              ("k=N", 1, 129, 32, 129), ("k=N", 65, 1000, 8, 1000)]
     for kind, qn, n, d, k in cases:
         unit_rows = kind not in ("tier1", "unaligned")
         g = unit(randn(n, d)) if unit_rows else randn(n, d)
@@ -211,24 +261,33 @@ def phase_kernels(torch):
     topk_err = max(topk_err, check_topk(torch, -g[:3].contiguous(), g, 8))
     g = randn(50_000, 32)
     topk_err = max(topk_err, check_topk(torch, -g[:64].contiguous(), g, 25))
-    # duplicate rows: exact ties; the lower index must win (shared-memory
-    # lists and global-memory lists)
-    base = randn(500, 32)
-    g = base.repeat(40, 1).contiguous()          # row r == row r % 500
-    q = randn(24, 32)
-    for k in (25, KSMEM + 100):
-        s, i = topk_gallery(q, g, k)
-        ps, pi = topk_gallery_plain(q, g, k)
-        assert torch.equal(i, pi), f"duplicate rows: tie order differs, k={k}"
-        topk_err = max(topk_err, float((s - ps).abs().max()))
-    # NaN queries: NaN scores count as -inf, nothing raises
-    q = randn(9, 32)
-    q[[1, 4]] = float("nan")
-    for k in (25, 3000):
-        s, i = topk_gallery(q, randn(3000, 32), k)
-        torch.cuda.synchronize()
-        assert bool(torch.isneginf(s[[1, 4]]).all())
-        assert torch.equal(i[[1, 4]].cpu(), torch.arange(k).repeat(2, 1))
+    # duplicate rows: exact ties; the lower index must win, on each side of
+    # each switch and with the scores in global memory (d = 128,
+    # k = 12,000)
+    for d, k, reps in ((32, 25, 40), (32, 32, 40), (32, 33, 40),
+                       (32, 1024, 40), (32, 2049, 40), (128, 12_000, 200)):
+        base = randn(500, d)
+        g = base.repeat(reps, 1).contiguous()        # row r == row r % 500
+        for qn in (1, 24, 70):
+            q = randn(qn, d)
+            s, i = topk_gallery(q, g, k)
+            ps, pi = topk_gallery_plain(q, g, k)
+            assert torch.equal(i, pi), \
+                f"duplicate rows: tie order differs, Q={qn} d={d} k={k}"
+            topk_err = max(topk_err, float((s - ps).abs().max()))
+    # NaN queries: NaN scores count as -inf, nothing raises; a NaN query's
+    # list is rows 0..k-1
+    for d, n, k in ((32, 3000, 25), (32, 3000, 33), (32, 3000, 1024),
+                    (32, 3000, 2049), (32, 3000, 3000),
+                    (128, 100_000, 12_000)):
+        for qn in (9, 40):
+            q = randn(qn, d)
+            q[[1, 4]] = float("nan")
+            s, i = topk_gallery(q, randn(n, d), k)
+            torch.cuda.synchronize()
+            assert bool(torch.isneginf(s[[1, 4]]).all())
+            assert torch.equal(i[[1, 4]].cpu(), torch.arange(k).repeat(2, 1))
+            assert bool(torch.isfinite(s[0]).all())
     emit("kernels", kernel="topk_gallery", case="anti/dup/nan", ok=True)
 
     gather_err = 0.0
@@ -261,25 +320,37 @@ def phase_kernels(torch):
     for qn, n, k in ((100, 12_000, 25), (100, 100_000, 25),
                      (100, 1_000_000, 25), (1, 12_000, 25), (8, 12_000, 25),
                      (1, 1_000_000, 25), (8, 1_000_000, 25),
-                     (100, 100_000, 2048)):
+                     (100, 100_000, 1024), (100, 100_000, 2048)):
         g, q = unit(randn(n, 32)), unit(randn(qn, 32))
-        iters = 5 if k > KSMEM else 20
-        times[("topk", qn, n, k)] = (
-            cuda_ms(lambda: topk_gallery(q, g, k), iters=iters),
-            cuda_ms(lambda: topk_gallery_plain(q, g, k), iters=iters))
-        emit("timing", kernel="topk_gallery", Q=qn, N=n, k=k,
-             ms=times[("topk", qn, n, k)][0],
-             plain_ms=times[("topk", qn, n, k)][1])
+        iters = 5 if k > 128 else 20
+        b_ms, b_by = topk_bound(qn, n, 32, k)
+        row = dict(
+            ms=cuda_ms(lambda: topk_gallery(q, g, k), iters=iters),
+            plain_ms=cuda_ms(lambda: topk_gallery_plain(q, g, k),
+                             iters=iters),
+            bound_ms=b_ms, bound_by=b_by,
+            # the library's answer to the same question (its tie order is
+            # not the kernel's); timed only, never called by the port
+            library_ms=cuda_ms(lambda: torch.topk(q @ g.T, k, dim=1),
+                               iters=iters))
+        times[("topk", qn, n, k)] = row
+        emit("timing", kernel="topk_gallery", Q=qn, N=n, d=32, k=k, **row)
     plane = randn(24, 40, 3019)
     starts = torch.arange(0, 2920, 25, device=dev, dtype=torch.int32)
-    times["gather"] = (
-        cuda_ms(lambda: gather_feature_windows(plane, starts, 50)),
-        cuda_ms(lambda: gather_feature_windows_plain(plane, starts, 50)))
+    b_ms, b_by = gather_bound(24, 40, 3019, 50, len(starts))
+    times["gather"] = dict(
+        ms=cuda_ms(lambda: gather_feature_windows(plane, starts, 50)),
+        plain_ms=cuda_ms(lambda: gather_feature_windows_plain(plane, starts,
+                                                              50)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
     emit("timing", kernel="gather_feature_windows", C=24, H4=40, Wq=3019,
-         n_cols=50, N=len(starts), ms=times["gather"][0],
-         plain_ms=times["gather"][1])
-    return {"topk_gallery": (topk_err,) + times[("topk", 100, 12_000, 25)],
-            "gather_feature_windows": (gather_err,) + times["gather"]}
+         n_cols=50, N=len(starts), **times["gather"])
+    # the kernels line reports each kernel at the main path's shape: Q = 100
+    # excerpts x the 60-piece gallery (12,000 rows), k = 25; one strip
+    return {"topk_gallery": dict(max_abs_err=topk_err,
+                                 **times[("topk", 100, 12_000, 25)]),
+            "gather_feature_windows": dict(max_abs_err=gather_err,
+                                           **times["gather"])}
 
 
 # --- phase 4-6: the serving path -------------------------------------------------
@@ -346,9 +417,9 @@ def read_launches() -> dict:
 
 
 def phase_serving(torch):
-    from audio_sheet_retrieval_tpu import assets
-    from audio_sheet_retrieval_tpu.data import synthetic
-    from audio_sheet_retrieval_tpu.models.configs import get_model_config
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.data import synthetic
+    from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
     from audio_sheet_retrieval_tpu_torch.cli import audio_sheet_server as cli
     from audio_sheet_retrieval_tpu_torch.cli import sheet_audio_server as \
         s2a_cli
@@ -628,7 +699,7 @@ def golden_chirp():
 
 
 def phase_audio(torch, ctx):
-    from audio_sheet_retrieval_tpu import assets
+    from audio_sheet_retrieval_tpu_torch import assets
     from audio_sheet_retrieval_tpu_torch.models import cca_model
     from audio_sheet_retrieval_tpu_torch.ops.audio import AudioProcessor
     from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
@@ -699,12 +770,12 @@ def main() -> int:
                 "audio_sheet_retrieval_tpu/ops/windows.py:84"}
     sources = {"topk_gallery": "topk_gallery.cu",
                "gather_feature_windows": "feature_windows.cu"}
-    for name, (err, ms, plain_ms) in kernel_stats.items():
+    for name, stats in kernel_stats.items():
         rows.append({"name": name, "route": "cuda",
                      "source": "audio_sheet_retrieval_tpu_torch/csrc/"
                      + sources[name],
                      "replaces": replaces[name], "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     **stats})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -108,9 +108,9 @@ def main(argv=None) -> int:
         raise SystemExit("torch.cuda.is_available() is false; this profile "
                          "runs only on a CUDA card")
 
-    from audio_sheet_retrieval_tpu import assets
-    from audio_sheet_retrieval_tpu.data import synthetic
-    from audio_sheet_retrieval_tpu.models.configs import get_model_config
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.data import synthetic
+    from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
     from audio_sheet_retrieval_tpu_torch.ops import windows as win
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
     from audio_sheet_retrieval_tpu_torch.retrieval import accuracy

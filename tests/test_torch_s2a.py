@@ -122,7 +122,7 @@ def test_detect_performance_matches_jax(pair):
 
 
 def test_detect_score_from_audio_matches_jax(pair):
-    from audio_sheet_retrieval_tpu_torch.ops.audio import default_processor
+    from audio_sheet_retrieval_tpu_torch.ops.audio import AudioProcessor
 
     jsrv, tsrv, names, table = pair
     for srv in (jsrv, tsrv):
@@ -138,14 +138,16 @@ def test_detect_score_from_audio_matches_jax(pair):
     np.testing.assert_allclose(got[1][:len(want[1])], want[1][:len(got[1])],
                                atol=MULAW_ATOL)
     # against the port's own host chain (process -> detect_score)
-    host = tsrv.detect_score(default_processor().process(sig), top_k=4,
-                             n_candidates=5)
+    host = tsrv.detect_score(AudioProcessor(device="cpu").process(sig),
+                             top_k=4, n_candidates=5)
     assert got[0][0] == host[0][0]
     np.testing.assert_allclose(got[1][:len(host[1])], host[1][:len(got[1])],
                                atol=MULAW_ATOL)
     key = tsrv._fused_query_key
     tsrv.detect_score_from_audio(sig, top_k=2, n_candidates=5)
     assert tsrv._fused_query_key == key
+    # the server's processor lives on the server's device
+    assert tsrv._processor.device == tsrv.device
     # stereo at 44.1 kHz: downmixed and resampled as in the JAX package
     stereo = np.stack([sig, sig], axis=1).repeat(2, axis=0)
     want = jsrv.detect_score_from_audio(stereo, top_k=4, n_candidates=5,

@@ -251,20 +251,33 @@ def test_cli_npz_source_matches_synthetic(tmp_path):
 
 
 NO_JAX_SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.abc, pkgutil, sys
+
+
+class RefuseJaxPackage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "audio_sheet_retrieval_tpu":
+            raise ImportError("the port imported " + name)
+        return None
+
+
+sys.meta_path.insert(0, RefuseJaxPackage())
 import numpy as np
 import audio_sheet_retrieval_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-from audio_sheet_retrieval_tpu import assets
-from audio_sheet_retrieval_tpu.data import synthetic
-from audio_sheet_retrieval_tpu.models.configs import get_model_config
+import chip_smoke
+from audio_sheet_retrieval_tpu_torch import assets
+from audio_sheet_retrieval_tpu_torch.data import synthetic
+from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
 from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
 from audio_sheet_retrieval_tpu_torch.retrieval.server import AudioSheetServer
 from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import RetrievalWrapper
 cfg = get_model_config("mutopia_ccal_cont_rsz")
 w = RetrievalWrapper(cfg, param_file=assets.asset_path(
     "synth_serving_ckpt.pkl"), device="cpu")
+RetrievalWrapper(cfg, param_file=assets.tutorial_checkpoint_path(),
+                 device="cpu")
 images, specs, _ = synthetic.make_piece_list(3, 2, n_onsets=12)
 specs = [s[0] for s in specs]
 for fullconv in (False, True):
@@ -287,12 +300,16 @@ srv.run(specs[0][:, :45], on_update=lambda *a: None)
 srv.initialize_audio_db_from_specs_device(["a", "b"], specs)
 srv.detect_performance_from_sheet(images[0], n_samples=4)
 srv.detect_performance(images[0], n_samples=4)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "audio_sheet_retrieval_tpu"))
 print("JAX_MODULES", loaded)
 """
 
 
 def test_port_never_imports_jax():
+    """Every module of the port and chip_smoke.py import, and the serving
+    paths run, with the JAX package refused by an import hook; afterwards
+    no module of jax or of the JAX package is loaded."""
     res = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

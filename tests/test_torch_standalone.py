@@ -1,0 +1,207 @@
+"""The PyTorch port stands alone: it imports nothing of the JAX package, and
+its own copies of the JAX package's framework-free modules agree with them
+on the same inputs (bit for bit: the code is numpy).
+
+The no-jax run of the port's serving paths, with the JAX package blocked
+from import, is ``tests/test_torch_serving.py::test_port_never_imports_jax``.
+"""
+
+import ast
+import dataclasses
+import glob
+import os
+
+import numpy as np
+import pytest
+
+from audio_sheet_retrieval_tpu import assets as jassets
+from audio_sheet_retrieval_tpu import config as jconfig
+from audio_sheet_retrieval_tpu.data import iterators as jiter
+from audio_sheet_retrieval_tpu.data import msmd as jmsmd
+from audio_sheet_retrieval_tpu.data import pools as jpools
+from audio_sheet_retrieval_tpu.data import synthetic as jsyn
+from audio_sheet_retrieval_tpu.models import configs as jconfigs
+from audio_sheet_retrieval_tpu.ops import filterbank as jfb
+from audio_sheet_retrieval_tpu_torch import assets as tassets
+from audio_sheet_retrieval_tpu_torch import config as tconfig
+from audio_sheet_retrieval_tpu_torch.data import iterators as titer
+from audio_sheet_retrieval_tpu_torch.data import msmd as tmsmd
+from audio_sheet_retrieval_tpu_torch.data import pools as tpools
+from audio_sheet_retrieval_tpu_torch.data import synthetic as tsyn
+from audio_sheet_retrieval_tpu_torch.models import configs as tconfigs
+from audio_sheet_retrieval_tpu_torch.ops import audio as taudio
+from audio_sheet_retrieval_tpu_torch.ops import filterbank as tfb
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_SOURCES = sorted(
+    glob.glob(os.path.join(REPO, "audio_sheet_retrieval_tpu_torch", "**",
+                           "*.py"), recursive=True)
+    + [os.path.join(REPO, "chip_smoke.py")]
+    + glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_of_the_jax_package(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in ("audio_sheet_retrieval_tpu", "jax", "jaxlib")]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_port_sources_are_found():
+    names = {os.path.relpath(p, REPO) for p in PORT_SOURCES}
+    assert "chip_smoke.py" in names
+    assert os.path.join("audio_sheet_retrieval_tpu_torch", "data",
+                        "pools.py") in names
+
+
+@pytest.mark.parametrize("name", sorted(jconfigs.MODEL_REGISTRY))
+def test_model_configs_field_for_field(name):
+    assert sorted(tconfigs.MODEL_REGISTRY) == sorted(jconfigs.MODEL_REGISTRY)
+    want = jconfigs.get_model_config(name)
+    got = tconfigs.get_model_config(name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+    assert got.encoder_input_shape_1 == want.encoder_input_shape_1
+    # reference-style paths and overrides
+    kw = dict(num_filters=4, dim_latent=8)
+    assert dataclasses.asdict(tconfigs.get_model_config(
+        "models/%s.py" % name, **kw)) == dataclasses.asdict(
+        jconfigs.get_model_config("models/%s.py" % name, **kw))
+    with pytest.raises(KeyError):
+        tconfigs.get_model_config("no_such_model")
+
+
+@pytest.mark.parametrize("kw", [{}, dict(num_bands=12, fmin=40.0,
+                                         fmax=8000.0),
+                                dict(sample_rate=44100, frame_size=4096)])
+def test_filterbank_bit_for_bit(kw):
+    np.testing.assert_array_equal(tfb.logarithmic_filterbank(**kw),
+                                  jfb.logarithmic_filterbank(**kw))
+    for const in ("A4", "SAMPLE_RATE", "FRAME_SIZE", "FPS", "NUM_BANDS",
+                  "FMIN", "FMAX", "SPEC_BINS"):
+        assert getattr(tfb, const) == getattr(jfb, const), const
+
+
+@pytest.fixture(scope="module")
+def pieces():
+    kw = dict(n_performances=2, n_onsets=60)
+    return jsyn.make_piece_list(26, 3, **kw), tsyn.make_piece_list(26, 3, **kw)
+
+
+def test_make_piece_list_bit_for_bit(pieces):
+    (jimg, jspec, jo2c), (timg, tspec, to2c) = pieces
+    assert len(timg) == len(jimg) == 3
+    for p in range(3):
+        np.testing.assert_array_equal(timg[p], jimg[p])
+        assert timg[p].dtype == jimg[p].dtype
+        for k in range(2):
+            np.testing.assert_array_equal(tspec[p][k], jspec[p][k])
+            assert tspec[p][k].dtype == jspec[p][k].dtype
+            np.testing.assert_array_equal(to2c[p][k], jo2c[p][k])
+
+
+@pytest.mark.parametrize("contexts", [
+    {}, dict(spec_context=30, sheet_context=120, staff_height=100)],
+    ids=["default", "narrow"])
+def test_retrieval_pool_windows_bit_for_bit(pieces, contexts):
+    for const in ("SHEET_CONTEXT", "SYSTEM_HEIGHT", "SPEC_CONTEXT",
+                  "SPEC_BINS"):
+        assert getattr(tpools, const) == getattr(jpools, const), const
+    (jimg, jspec, jo2c), _ = pieces
+    # the servers' pool: entity order, no augmentation
+    jpool = jpools.AudioScoreRetrievalPool(
+        jimg, jspec, jo2c, data_augmentation=jpools.NO_AUGMENT,
+        shuffle=False, **contexts)
+    tpool = tpools.AudioScoreRetrievalPool(jimg, jspec, jo2c, **contexts)
+    assert tpool.shape == jpool.shape and tpool.shape[0] > 100
+    np.testing.assert_array_equal(tpool.train_entities, jpool.train_entities)
+    for key in (slice(0, tpool.shape[0]), 7):
+        for got, want in zip(tpool[key], jpool[key]):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,batch", [(7, 3), (6, 3), (1, 5), (10, 10)])
+def test_batch_compute1_matches_jax(n, batch):
+    X = np.random.default_rng(n).standard_normal((n, 2, 4)).astype(np.float32)
+
+    def compute(e):
+        assert e.shape[0] == batch  # fixed batch shape, zero-padded tail
+        return e.sum(axis=(1, 2))[:, None] * np.arange(3, dtype=np.float32)
+
+    got = titer.batch_compute1(X, compute, batch)
+    np.testing.assert_array_equal(got, jiter.batch_compute1(X, compute,
+                                                            batch))
+    np.testing.assert_array_equal(
+        titer.batch_compute1(X, compute, batch, prepare=lambda e: e * 2),
+        jiter.batch_compute1(X, compute, batch, prepare=lambda e: e * 2))
+
+
+@pytest.mark.parametrize("split,config", [(None, None), ("s/b.yaml", None),
+                                          (None, "c/full_aug.yaml"),
+                                          ("a/bach_split.yaml", "x.yaml")])
+def test_compile_tag_matches_jax(split, config):
+    assert tconfig.compile_tag(split, config) == \
+        jconfig.compile_tag(split, config)
+
+
+def test_config_paths_and_split_match_jax(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert tconfig.EXP_ROOT == jconfig.EXP_ROOT
+    for param_file in (str(tmp_path / "exp" / "params_split_cfg.pkl"),
+                       str(tmp_path / "params.pkl"), "rel/params_x.npz",
+                       str(tmp_path / "model.orbax"),
+                       jassets.asset_path("synth_serving_ckpt.pkl"),
+                       jassets.tutorial_checkpoint_path()):
+        for prefix, suffix in (("retrieval_", "A2S.yaml"), ("eval_", "x")):
+            assert tconfig.derive_result_path(param_file, prefix, suffix) \
+                == jconfig.derive_result_path(param_file, prefix, suffix)
+    split = tmp_path / "split.yaml"
+    split.write_text("train: [a, b]\nvalid: [c]\ntest: [d, e]\n")
+    assert tconfig.load_split(str(split)) == jconfig.load_split(str(split))
+
+
+def test_assets_read_by_path_match_jax():
+    assert tassets.assets_dir() == jassets.assets_dir()
+    assert tassets.tutorial_checkpoint_path() == \
+        jassets.tutorial_checkpoint_path()
+    assert tassets.asset_path("synth_serving_ckpt.pkl") == \
+        jassets.asset_path("synth_serving_ckpt.pkl")
+    got = tassets.load_raw_arrays(tassets.tutorial_checkpoint_path())
+    want = jassets.load_raw_arrays(jassets.tutorial_checkpoint_path())
+    assert len(got) == len(want) == 97
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_perf", [1, 2])
+def test_load_piece_npz_matches_jax(tmp_path, pieces, n_perf):
+    (jimg, jspec, jo2c), _ = pieces
+    path = str(tmp_path / "piece.npz")
+    arrays = dict(image=jimg[0])
+    for k in range(n_perf):
+        arrays.update({f"spec_{k}": jspec[0][k], f"o2c_{k}": jo2c[0][k]})
+    np.savez(path, **arrays)
+    got, want = tmsmd.load_piece_npz(path), jmsmd.load_piece_npz(path)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert len(got[1]) == len(want[1]) == n_perf
+    for a, b in zip(got[1] + got[2], want[1] + want[2]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_audio_processor_needs_a_device():
+    with pytest.raises(TypeError, match="device"):
+        taudio.AudioProcessor()
+    assert taudio.AudioProcessor(device="cpu").device.type == "cpu"

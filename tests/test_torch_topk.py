@@ -43,7 +43,7 @@ def test_topk_matches_jax_pallas(n, qn, k):
 
 def test_topk_rejects_bad_k():
     """Only k outside [0, N] is refused, on the card as on the CPU: the
-    kernel keeps lists longer than KSMEM in global memory."""
+    kernel keeps lists too long for shared memory in global memory."""
     g, q = torch.zeros(100, 8), torch.zeros(2, 8)
     for k in (101, 200, -1):
         with pytest.raises(ValueError, match="k="):
@@ -55,9 +55,9 @@ def test_topk_rejects_bad_k():
 
 
 def test_topk_k_equals_n_matches_jax_gallery():
-    """k = N above KSMEM (the lists the kernel keeps in global memory on
-    the card): every row, in the JAX gallery's order."""
-    n = tk.KSMEM + 476
+    """k = N above 2,048 (a list of 4,096 slots and more on the card):
+    every row, in the JAX gallery's order."""
+    n = 2_524
     q, g = _both(n, 3, 16, 17)
     s, i = tk.topk_gallery(torch.from_numpy(q), torch.from_numpy(g), n)
     assert i.shape == (3, n)
@@ -118,9 +118,74 @@ def test_non_cpu_non_cuda_tensors_raise():
 @pytest.mark.parametrize("n,q", [(12_000, 100), (1_000_000, 100),
                                  (1_000, 1), (5, 300)])
 def test_chunk_rows_cover_the_gallery(n, q):
-    rows = tk.chunk_rows(n, q)
-    assert rows % tk.TILE == 0 and tk.TILE <= rows <= tk.MAX_CHUNK
-    assert -(-n // rows) <= 65535
+    p = tk.plan(q, n, min(25, n), 32)
+    assert p.chunk % tk.TR == 0 and p.chunk >= tk.TR
+    assert p.n_chunks * p.chunk >= n > (p.n_chunks - 1) * p.chunk
+    assert p.n_chunks <= tk.GRID_Y_MAX
+
+
+PLAN_GRID = [(q, n, k, d)
+             for q in (1, 2, 8, 9, 32, 33, 64, 65, 100, 129, 1000)
+             for n in (1, 127, 129, 12_000, 1_000_000, 200_000_000)
+             for k in (1, 25, 128, 129, 1024, 2049, 8192, 20_000, n)
+             for d in (4, 8, 32, 128) if k <= n]
+
+
+@pytest.mark.parametrize("d", [4, 8, 32, 128])
+def test_launch_plan_fits_the_card(d):
+    """For every (Q, N, k, d) of a grid: each instance's shared memory
+    stays within the 227 KB a CTA may use, the grid within its limits, the
+    chunks cover N, and each sort area holds its k best."""
+    for q, n, k, _ in (g for g in PLAN_GRID if g[3] == d):
+        p = tk.plan(q, n, k, d)
+        where = (q, n, k, d, p)
+        assert p.qbw in tk.QBWS and p.q_blocks * p.qbw >= q > \
+            (p.q_blocks - 1) * p.qbw, where
+        assert p.q_blocks <= 2**31 - 1 and q <= 2**31 - 1, where
+        assert 1 <= p.n_chunks <= tk.GRID_Y_MAX, where
+        assert p.chunk % tk.TR == 0, where
+        assert p.n_chunks * p.chunk >= n > (p.n_chunks - 1) * p.chunk, where
+        assert p.kp == min(k, p.chunk), where
+        warp = k <= tk.WARP_K  # lists in registers, a tile's buffer a query
+        if warp:
+            assert p.s2 == p.smem2 == 0, where
+        else:  # pass 2 sorts an area of pow2(k) slots
+            assert p.s2 & (p.s2 - 1) == 0 and k <= p.s2 < 2 * k, where
+        limit = tk.SMEM_MAX if warp else tk.SMEM_MAX - tk.SELECT_STATIC
+        assert p.smem1 == tk.chunk_smem_bytes(
+            d, p.qbw, p.chunk, p.kp, not p.lists1_global), where
+        assert p.smem1 <= limit and p.smem2 <= limit, where
+        assert p.lists1_global == (tk.chunk_smem_bytes(
+            d, 1, p.chunk, p.kp) > limit), where
+        assert p.lists2_global == (p.smem2 == 0 and not warp), where
+        if p.keys2:  # the sort area, then every part-list entry's key
+            assert p.smem2 == 8 * p.s2 + 4 * p.n_chunks * p.kp, where
+        else:
+            assert warp or p.lists2_global or p.smem2 == 8 * p.s2, where
+        assert warp or p.chunk >= min(tk.MIN_ROWS_PER_K * k, n), where
+        assert tk.chunk_threads(p.qbw, p.kp) in (128, 256, 512)
+
+
+def test_launch_plan_picks_wide_query_blocks():
+    """At Q = 100 four 32-query blocks share each chunk; one frame gets a
+    one-query block; what outgrows shared memory narrows the block, or
+    shortens the chunk of an 8-query block."""
+    assert tk.plan(100, 1_000_000, 25, 32)[:2] == (32, 4)
+    assert tk.plan(1, 1_000_000, 25, 32).qbw == 1
+    assert tk.plan(8, 12_000, 25, 32).qbw == 8
+    assert tk.plan(9, 12_000, 25, 32).qbw == 32
+    assert tk.plan(100, 12_000, 25, 128).qbw == 32
+    assert tk.plan(100, 12_000, 2048, 128).qbw == 1  # d = 128: tiles grow
+    p = tk.plan(100, 100_000, 1024, 32)  # sized again for 13 blocks
+    assert p.qbw == 8 and p.chunk >= 4 * 1024 and p.keys2
+    assert p.q_blocks * p.n_chunks <= tk.TARGET_CTAS
+    p = tk.plan(100, 100_000, 2048, 32)
+    assert p.qbw == 8 and not p.lists1_global and p.chunk >= 2 * 2048
+    assert p.keys2
+    p = tk.plan(2, 200_000, 20_000, 32)
+    assert p.lists1_global and p.lists2_global
+    p = tk.plan(3, 100_000, 12_000, 128)
+    assert p.lists1_global and not p.lists2_global
 
 
 def test_device_gallery_matches_jax():
