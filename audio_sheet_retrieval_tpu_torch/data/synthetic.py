@@ -1,8 +1,9 @@
 """Synthetic MSMD-like pieces.
 
-The port's own copy of ``make_piece_list`` and what it calls from the JAX
-package's ``data/synthetic.py``; the same seed gives the same pieces bit for
-bit (``tests/test_torch_standalone.py``).
+The port's own copy of ``make_piece_list``, ``load_synthetic_retrieval``
+and what they call from the JAX package's ``data/synthetic.py``; the same
+seed gives the same pieces and pools bit for bit
+(``tests/test_torch_standalone.py``).
 
 A piece is an unrolled 200-px sheet strip, per-performance
 log-spectrograms and onset->x-coordinate maps, the structure the real
@@ -13,11 +14,15 @@ band it excites, so the two modalities correspond.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from audio_sheet_retrieval_tpu_torch.data.pools import SPEC_BINS
+from audio_sheet_retrieval_tpu_torch.data.pools import (
+    NO_AUGMENT,
+    SPEC_BINS,
+    AudioScoreRetrievalPool,
+)
 
 N_PITCHES = 24
 
@@ -97,3 +102,37 @@ def make_piece_list(seed: int, n_pieces: int, **piece_kwargs):
         specs.append(sp)
         o2cs.append(oc)
     return images, specs, o2cs
+
+
+def load_synthetic_retrieval(
+    n_train: int = 6,
+    n_valid: int = 2,
+    n_test: int = 2,
+    seed: int = 23,
+    augment: Optional[Dict] = None,
+    test_only: bool = False,
+    **piece_kwargs,
+) -> Dict:
+    """Synthetic analog of mutopia_data.load_audio_score_retrieval
+    (reference:utils/mutopia_data.py:47-98): train(aug, shuffled) /
+    valid(no-aug) / test(no-aug) pools."""
+    augment = dict(augment or NO_AUGMENT)
+
+    tr_pool = va_pool = None
+    if not test_only:
+        tr = make_piece_list(seed, n_train, **piece_kwargs)
+        tr_pool = AudioScoreRetrievalPool(
+            *tr, data_augmentation=augment, shuffle=True,
+            rng=np.random.default_rng(seed))
+        va = make_piece_list(seed + 1, n_valid, **piece_kwargs)
+        va_pool = AudioScoreRetrievalPool(
+            *va, data_augmentation=NO_AUGMENT, shuffle=False,
+            rng=np.random.default_rng(seed + 1))
+        va_pool.reset_batch_generator()
+
+    te = make_piece_list(seed + 2, n_test, **piece_kwargs)
+    te_pool = AudioScoreRetrievalPool(
+        *te, data_augmentation=NO_AUGMENT, shuffle=False,
+        rng=np.random.default_rng(seed + 2))
+
+    return dict(train=tr_pool, valid=va_pool, test=te_pool, train_tag="synthetic")

@@ -66,18 +66,30 @@ def length_norm(x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def embed_view1(params: ModelParams, x1: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """Sheet embedding: encoder -> affine CCA -> L2."""
+def pre_cca_latent_v1(params: ModelParams, x1: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """View-1 encoder output BEFORE the CCA head — input to the large-batch
+    refinement fit (reference:refine_cca.py:86-97)."""
     check_numerics(cfg)
-    h1 = params.view1(x1)
-    return length_norm((h1 - params.cca.mean1) @ params.cca.U)
+    return params.view1(x1)
 
 
 @torch.no_grad()
+def pre_cca_latent_v2(params: ModelParams, x2: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    check_numerics(cfg)
+    return params.view2(x2)
+
+
+def embed_view1(params: ModelParams, x1: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Sheet embedding: encoder -> affine CCA -> L2."""
+    h1 = pre_cca_latent_v1(params, x1, cfg)
+    return length_norm((h1 - params.cca.mean1) @ params.cca.U)
+
+
 def embed_view2(params: ModelParams, x2: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """Audio embedding: encoder -> affine CCA -> L2."""
-    check_numerics(cfg)
-    h2 = params.view2(x2)
+    h2 = pre_cca_latent_v2(params, x2, cfg)
     return length_norm((h2 - params.cca.mean2) @ params.cca.V)

@@ -89,9 +89,12 @@ def _cca_state(arrays: Sequence[Any], device) -> CCAState:
                       for a in arrays))
 
 
-def import_retrieval_params(arrays: Sequence[np.ndarray], cfg: ModelConfig,
-                            *, device) -> ModelParams:
-    """97 lasagne arrays -> ModelParams on ``device``."""
+def tree_from_arrays(arrays: Sequence[np.ndarray],
+                      cfg: ModelConfig) -> ModelParams:
+    """97 lasagne arrays -> the JAX package's parameter tree with numpy
+    leaves: ``ModelParams`` of ``{"blocks": [{w[HWIO], beta, gamma, mean,
+    inv_std}]}`` views and a ``CCAState``, BN not folded (what
+    ``utils.io.save_pytree`` writes and ``params_from_numpy`` takes)."""
     if len(arrays) != N_TOTAL:
         raise ValueError(f"expected {N_TOTAL} arrays, got {len(arrays)} — "
                          f"not a reference retrieval checkpoint")
@@ -101,22 +104,31 @@ def import_retrieval_params(arrays: Sequence[np.ndarray], cfg: ModelConfig,
             f"checkpoint first-conv has {n_filters} filters but model "
             f"'{cfg.name}' expects {cfg.num_filters} — wrong model variant?")
     d = cfg.dim_latent
-    u, v, m1, m2 = arrays[2 * ARRAYS_PER_VIEW:2 * ARRAYS_PER_VIEW + 4]
-    for name, a, shape in [("U", u, (d, d)), ("V", v, (d, d)),
-                           ("mean1", m1, (d,)), ("mean2", m2, (d,))]:
+    cca = [np.asarray(a, np.float32) for a in arrays[2 * ARRAYS_PER_VIEW:]]
+    for name, a, shape in zip(("U", "V", "mean1", "mean2"), cca,
+                              ((d, d), (d, d), (d,), (d,))):
         if a.shape != shape:
             raise ValueError(f"CCA param {name} has shape {a.shape}, "
                              f"want {shape}")
 
     def view(flat):
-        return _encoder_from_blocks(
-            [dict(zip(_BLOCK_KEYS, flat[b * ARRAYS_PER_BLOCK:
-                                        (b + 1) * ARRAYS_PER_BLOCK]))
-             for b in range(BLOCKS_PER_VIEW)], device)
+        blocks = []
+        for b in range(BLOCKS_PER_VIEW):
+            blk = dict(zip(_BLOCK_KEYS, flat[b * ARRAYS_PER_BLOCK:
+                                             (b + 1) * ARRAYS_PER_BLOCK]))
+            blk["w"] = np.transpose(blk["w"], (2, 3, 1, 0))  # OIHW -> HWIO
+            blocks.append(blk)
+        return {"blocks": blocks}
 
     return ModelParams(view(arrays[:ARRAYS_PER_VIEW]),
                        view(arrays[ARRAYS_PER_VIEW:2 * ARRAYS_PER_VIEW]),
-                       _cca_state(arrays[2 * ARRAYS_PER_VIEW:], device))
+                       CCAState(*cca))
+
+
+def import_retrieval_params(arrays: Sequence[np.ndarray], cfg: ModelConfig,
+                            *, device) -> ModelParams:
+    """97 lasagne arrays -> ModelParams on ``device``."""
+    return params_from_numpy(tree_from_arrays(arrays, cfg), device=device)
 
 
 def load_retrieval_checkpoint(path: str, cfg: ModelConfig,

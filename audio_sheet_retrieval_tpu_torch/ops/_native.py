@@ -41,9 +41,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "topk_gallery_f32": ([_P, _P] + [_I] * 12 + [_P] * 8, _I),
     },
     "feature_windows": {
-        # plane, starts, N, C, H4, Wq, n_cols, elem_bytes, out, stream
-        "gather_feature_windows": ([_P, _P, _I, _I, _I, _I, _I, _I, _P,
-                                    _P], _I),
+        # plane, starts, N, R, Wq, n_cols, elem_bytes, ht, seg_log2, cap,
+        # row_stride, smem_bytes, out, stream
+        "gather_feature_windows": ([_P, _P] + [_I] * 10 + [_P, _P], _I),
     },
 }
 

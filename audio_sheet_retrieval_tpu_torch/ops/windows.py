@@ -20,7 +20,7 @@ wire codecs (rle, pack4, rANS) are not ported yet (ROADMAP Queue 1 #8).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,17 +73,72 @@ def gather_feature_windows_plain(plane: torch.Tensor, starts: torch.Tensor,
     return plane[:, :, cols].permute(2, 0, 1, 3).contiguous()
 
 
-def gather_feature_windows(plane: torch.Tensor, starts: torch.Tensor,
-                           n_cols: int) -> torch.Tensor:
-    """Block-2 input windows of the fullconv plane: [C, H4, Wq] f32/bf16
-    plane + [N] int32 half-res starts -> [N, C, H4, n_cols] (NCHW, the
-    layout block 2's conv takes). Starts must lie in
-    [0, Wq - 2*(n_cols-1)); ``host_starts`` checks them."""
-    if plane.dim() != 3:
-        raise ValueError(f"plane must be [C, H4, Wq], got {tuple(plane.shape)}")
-    c, h4, wq = plane.shape
-    if plane.device.type == "cpu" and starts.device.type == "cpu":
-        return gather_feature_windows_plain(plane, starts, n_cols)
+class GatherPlan(NamedTuple):
+    """Launch sizes of kernel 2 (``csrc/feature_windows.cu``)."""
+    ht: int          # plane rows a CTA stages
+    seg_log2: int    # a segment spans 2**seg_log2 window starts
+    cap: int         # windows a CTA lists at most (a slice of the starts)
+    row_stride: int  # bytes between two staged rows, a multiple of 16
+    smem_bytes: int  # dynamic shared memory of a CTA
+    grid: Tuple[int, int, int]  # row tiles, segments, window slices
+
+
+SMEM_LIMIT = 232_448       # dynamic shared memory a CTA can have on sm_90
+GRID_LIMIT = (2 ** 31 - 1, 65_535, 65_535)
+_STAGE_BYTES = 24 * 1024   # staged rows a CTA aims at: several CTAs a SM
+_MIN_CTAS = 2 * 132        # slices are cut finer until the grid has these
+
+
+@functools.lru_cache(maxsize=256)
+def gather_plan(r: int, wq: int, n_cols: int, n: int,
+                elem: int) -> GatherPlan:
+    """Sizes of one launch over an [r, wq] plane of ``elem``-byte elements
+    and ``n`` >= 1 windows of ``n_cols`` columns.
+
+    A CTA stages ``ht`` rows of one segment: ``2**seg_log2`` columns plus
+    the ``2 (n_cols - 1)`` a window reaches past its start. Four rows and
+    the widest segment that keep the staged bytes within ``_STAGE_BYTES``;
+    fewer rows when a wide window leaves no room for four. Raises when a
+    single row of the narrowest segment exceeds shared memory, when
+    ``ht * n_cols**2`` reaches 2**32 (the kernel's reciprocal division) or
+    when the grid exceeds the launch limits.
+    """
+    reach = 2 * (n_cols - 1)
+
+    def stride(seg: int) -> int:
+        # the widest staged span, plus up to 16 bytes of alignment shift
+        return -(-(min(seg + reach, wq) * elem + 16) // 16) * 16
+
+    p_max = max(6, (wq - 1).bit_length())
+    ht, seg_log2 = 1, 6
+    for rows in (4, 2, 1):
+        fits = [p for p in range(6, p_max + 1)
+                if rows * stride(1 << p) <= _STAGE_BYTES]
+        if fits:
+            ht, seg_log2 = rows, fits[-1]
+            break
+    ht = min(ht, r)
+    tiles = -(-r // ht)
+    n_seg = ((wq - 1) >> seg_log2) + 1
+    slices = max(-(-n // 1024), min(n, -(-_MIN_CTAS // (tiles * n_seg))))
+    cap = -(-n // slices)
+    row_stride = stride(1 << seg_log2)
+    smem = -(-(2 * cap + 4) * 4 // 16) * 16 + ht * row_stride
+    grid = (tiles, n_seg, -(-n // cap))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"n_cols={n_cols}: one staged row of {row_stride} "
+                         f"bytes exceeds shared memory ({SMEM_LIMIT})")
+    if (ht * n_cols + 16) * n_cols >= 2 ** 32:
+        raise ValueError(f"n_cols={n_cols} is too wide for the kernel's "
+                         f"reciprocal division")
+    if any(g > lim for g, lim in zip(grid, GRID_LIMIT)):
+        raise ValueError(f"grid {grid} exceeds the launch limits")
+    return GatherPlan(ht, seg_log2, cap, row_stride, smem, grid)
+
+
+def _check_gather_args(plane: torch.Tensor, starts: torch.Tensor,
+                       n_cols: int) -> None:
+    """What the kernel of ``csrc/feature_windows.cu`` takes."""
     if plane.device.type != "cuda" or starts.device != plane.device:
         raise ValueError(f"plane on {plane.device}, starts on "
                          f"{starts.device}: both must be on one CUDA device")
@@ -96,15 +151,35 @@ def gather_feature_windows(plane: torch.Tensor, starts: torch.Tensor,
         raise ValueError("plane and starts must be contiguous")
     if n_cols < 1:
         raise ValueError(f"n_cols={n_cols} < 1")
+    if plane.numel() == 0:
+        raise ValueError(f"empty plane {tuple(plane.shape)}")
+
+
+def gather_feature_windows(plane: torch.Tensor, starts: torch.Tensor,
+                           n_cols: int) -> torch.Tensor:
+    """Block-2 input windows of the fullconv plane: [C, H4, Wq] f32/bf16
+    plane + [N] int32 half-res starts -> [N, C, H4, n_cols] (NCHW, the
+    layout block 2's conv takes). Starts must lie in
+    [0, Wq - 2*(n_cols-1)); ``host_starts`` checks them."""
+    if plane.dim() != 3:
+        raise ValueError(f"plane must be [C, H4, Wq], got {tuple(plane.shape)}")
+    c, h4, wq = plane.shape
+    if plane.device.type == "cpu" and starts.device.type == "cpu":
+        return gather_feature_windows_plain(plane, starts, n_cols)
+    _check_gather_args(plane, starts, n_cols)
     n = starts.shape[0]
     out = torch.empty((n, c, h4, n_cols), dtype=plane.dtype,
                       device=plane.device)
-    if out.numel() == 0:  # N = 0: nothing to launch
+    if n == 0:  # nothing to launch
         return out
+    p = gather_plan(c * h4, wq, n_cols, n, plane.element_size())
+    if out.data_ptr() % 16:
+        raise ValueError("the output is not 16-byte aligned")
     lib = _native.load("feature_windows")
     err = lib.gather_feature_windows(
-        plane.data_ptr(), starts.data_ptr(), n, c, h4, wq, n_cols,
-        plane.element_size(), out.data_ptr(),
+        plane.data_ptr(), starts.data_ptr(), n, c * h4, wq, n_cols,
+        plane.element_size(), p.ht, p.seg_log2, p.cap, p.row_stride,
+        p.smem_bytes, out.data_ptr(),
         torch.cuda.current_stream(plane.device).cuda_stream)
     _native.check(err, "gather_feature_windows")
     gather_feature_windows.launches += 1

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from audio_sheet_retrieval_tpu_torch.data.pools import (
+    NO_AUGMENT,
     SHEET_CONTEXT,
     SPEC_BINS,
     SPEC_CONTEXT,
@@ -208,7 +209,8 @@ class AudioSheetServer:
             self.id_to_piece[piece_idx] = piece
             image, specs, o2c = piece_loader(piece)
             pool = AudioScoreRetrievalPool(
-                [image], [specs], [o2c],
+                [image], [specs], [o2c], data_augmentation=NO_AUGMENT,
+                shuffle=False,
                 sheet_context=self.sheet_shape[1],
                 staff_height=self.sheet_shape[0],
                 spec_context=self.spec_shape[1])
@@ -293,7 +295,8 @@ class AudioSheetServer:
             self.id_to_perform[piece_idx] = piece
             image, specs, o2c = piece_loader(piece)
             pool = AudioScoreRetrievalPool(
-                [image], [specs], [o2c],
+                [image], [specs], [o2c], data_augmentation=NO_AUGMENT,
+                shuffle=False,
                 sheet_context=self.sheet_shape[1],
                 staff_height=self.sheet_shape[0],
                 spec_context=self.spec_shape[1])

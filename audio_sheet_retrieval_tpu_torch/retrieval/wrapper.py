@@ -28,21 +28,30 @@ from audio_sheet_retrieval_tpu_torch.train.engine import (
 from audio_sheet_retrieval_tpu_torch.utils import io as uio
 
 
+def load_checkpoint_tree(path: str, cfg: ModelConfig) -> ModelParams:
+    """Any checkpoint the package reads (a native pytree pickle, a
+    reference lasagne .pkl, the repo's raw-array .npz asset form of one) ->
+    the unfolded parameter tree with numpy leaves (BN apart from the convs,
+    kernels HWIO): what ``utils.io.save_pytree`` writes back."""
+    if path.endswith(".npz"):
+        return lasagne_import.tree_from_arrays(
+            lasagne_import.load_lasagne_pickle(path), cfg)
+    payload = uio.load_payload(path)
+    if uio.is_pytree_payload(payload):
+        return uio.pytree_from_payload(payload, path)
+    if isinstance(payload, list):
+        return lasagne_import.tree_from_arrays(
+            lasagne_import.lasagne_arrays(payload, path), cfg)
+    raise ValueError(f"unrecognized checkpoint format in {path}")
+
+
 def load_any_checkpoint(path: str, cfg: ModelConfig, *,
                         device) -> ModelParams:
     """Load a native pytree checkpoint, a reference lasagne .pkl, or the
-    repo's raw-array .npz asset form of a lasagne checkpoint."""
-    if path.endswith(".npz"):
-        return lasagne_import.load_retrieval_checkpoint(path, cfg,
-                                                        device=device)
-    payload = uio.load_payload(path)
-    if uio.is_pytree_payload(payload):
-        return lasagne_import.params_from_numpy(
-            uio.pytree_from_payload(payload, path), device=device)
-    if isinstance(payload, list):
-        return lasagne_import.import_retrieval_params(
-            lasagne_import.lasagne_arrays(payload, path), cfg, device=device)
-    raise ValueError(f"unrecognized checkpoint format in {path}")
+    repo's raw-array .npz asset form of a lasagne checkpoint, BN folded
+    into the convs, on ``device``."""
+    return lasagne_import.params_from_numpy(load_checkpoint_tree(path, cfg),
+                                            device=device)
 
 
 class RetrievalWrapper:

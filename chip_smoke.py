@@ -13,13 +13,21 @@ exits non-zero):
    (top-k: scores atol 1e-4, equal index sets, tie rule, NaN queries, k up
    to 20,000 and k = N, at the boundaries of its launch plan (query-block
    widths, k <= 32 or above, d in {8, 32, 128}, N off the tile, scores in
-   shared and in global memory), and every shape it is timed at; gather:
-   bit-identical, f32 and bf16), and each one's median time beside the
+   shared and in global memory), the evaluation's shapes Q = N = 2,000 at
+   d = 32 and 16, and every shape it is timed at; gather: bit-identical,
+   f32 and bf16, at the serving shape, 1 to 1,000 windows, a short strip,
+   one column, 1 and 96 channels, starts at both ends of the legal range
+   and beyond it (the all-ones pattern)), and each one's median time beside the
    plain version's, the least time the card could take (``bound_ms``:
-   bytes at 3.35 TB/s or float32 FMAs at 67 TFLOP/s, the larger) and, for
-   the top-k, one library call's (``torch.topk(q @ g.T, k)``), CUDA
-   events after a warm-up, at the serving shapes: Q = 100 excerpts, the
-   streaming shapes Q = 1 and Q = 8, and k = 1,024 and 2,048.
+   bytes at 3.35 TB/s or float32 FMAs at 67 TFLOP/s, the larger) and one
+   library call's (``torch.topk(q @ g.T, k)``; one ``torch.gather`` over
+   the expanded plane), CUDA events after a warm-up, at the serving
+   shapes: Q = 100 excerpts, the streaming shapes Q = 1 and Q = 8, the
+   evaluation's Q = N = 2,000, and k = 1,024 and 2,048; the gather and its
+   library call also by their device time (``device_us``,
+   ``library_device_us``, torch.profiler: the event time of so short a
+   launch is host time), with the share of the bound the kernel's device
+   time reaches.
 4. main path: the vendored synthetic-corpus serving checkpoint at full
    width (``mutopia_ccal_cont_rsz``, f32), a 60-piece synthetic corpus,
    gallery built on the card, 100-excerpt piece-ID queries; rank<=1 >= 59/60
@@ -44,10 +52,22 @@ exits non-zero):
    ``detect_score_from_audio`` against process -> ``detect_score``: the
    same top-1, votes within 0.05.
 
+10. evaluate / refine: ``cli.run_eval.main`` on the synthetic test set
+   (2,000 queries, both directions, and ``--estimate_UV`` on the refitted
+   file): its ranks up to 25 come from the top-k kernel and equal the full
+   argsort's, and its report equals a replay on the host copy of the codes;
+   ``cli.refine_cca.refine`` over 10,000 train pairs (60 pieces of 200
+   onsets): the canonical correlations within 1e-3 of a float64 numpy fit
+   of the same latents (the eigen and eigen-4 families and the summed
+   moments of two shards too), the refitted checkpoint written in the JAX
+   package's format and reloaded to the same embeddings; MRR before and
+   after the refit on 2,000 distinct test pairs; unequal galleries and the
+   packed 8-vector on the card against the CPU's answers.
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
-zeroed before and read after each of phases 7-9; each of those phases must
+zeroed before and read after each of phases 7-10; each of those phases must
 launch the top-k kernel, and the ``kernels`` line reports the sum over
-phases 4-9, beside each kernel's times at the main path's shape (top-k:
+phases 4-10, beside each kernel's times at the main path's shape (top-k:
 Q = 100, N = 12,000, k = 25; gather: one 6040-px strip). The last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -104,6 +124,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_us(fn, name: str = "", iters: int = 20) -> float:
+    """Mean device microseconds a call of ``fn()`` spends in the kernels
+    whose name holds ``name`` (torch.profiler; no host launch gap in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and name in ev.name) / iters
+
+
 def bound(nbytes: float, flops: float):
     """-> (least milliseconds the card could take, "bytes" or
     "operations"): each input read once, each output written once, at the
@@ -120,10 +157,21 @@ def topk_bound(q: int, n: int, d: int, k: int):
     return bound(4 * (q + n) * d + 12 * q * k, 2 * q * n * d)
 
 
-def gather_bound(c: int, h4: int, wq: int, n_cols: int, n: int,
+def gather_bound(c: int, h4: int, wq: int, n_cols: int, starts,
                  elem: int = 4):
-    """Kernel 2: the plane and the starts read, the windows written."""
-    return bound(elem * c * h4 * wq + 4 * n + elem * n * c * h4 * n_cols, 0)
+    """Kernel 2: the part of the plane these windows reach and the starts
+    read, the windows written. A window reaches columns [s, s + 2 (n_cols
+    - 1)]; the union over the host array ``starts`` is counted row by row
+    in the 32-byte sectors device memory moves (a plane of 32-byte-aligned
+    base), so one window of a long strip does not count the whole plane."""
+    s = np.asarray(starts, np.int64).reshape(-1)
+    edges = np.zeros(wq + 1, np.int64)
+    np.add.at(edges, np.clip(s, 0, wq), 1)
+    np.add.at(edges, np.clip(s + 2 * (n_cols - 1) + 1, 0, wq), -1)
+    cols = np.nonzero(np.cumsum(edges)[:wq] > 0)[0]
+    sectors = (np.arange(c * h4)[:, None] * wq + cols[None, :]) * elem // 32
+    read = 32 * np.unique(sectors).size
+    return bound(read + 4 * s.size + elem * s.size * c * h4 * n_cols, 0)
 
 
 # --- phase 1-2 -----------------------------------------------------------------
@@ -147,14 +195,20 @@ def phase_device(torch):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from audio_sheet_retrieval_tpu_torch.ops import _native
 
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(_native.build, _native.SIGNATURES))
     for name in _native.SIGNATURES:
         t0 = time.perf_counter()
         _native.load(name)
         ptxas = [ln.strip() for ln in _native.BUILD_LOG[name]["ptxas"]
                  .splitlines() if "Used" in ln or "spill" in ln]
-        emit("build", kernel=name, seconds=time.perf_counter() - t0,
+        emit("build", kernel=name, load_seconds=time.perf_counter() - t0,
+             nvcc_seconds=_native.BUILD_LOG[name]["seconds"],
              cached=_native.BUILD_LOG[name]["cached"], ptxas=ptxas)
 
 
@@ -192,6 +246,70 @@ def check_topk(torch, q, g, k):
             assert abs(float(ref[r, j] - kth[r, 0])) <= TOPK_ATOL, \
                 f"row {r}: index {j} differs"
     return err
+
+
+def phase_gather_checks(torch, randn, gen) -> float:
+    """Kernel 2 against the plain version, bit for bit, float32 and
+    bfloat16 -> the largest absolute difference (0.0)."""
+    from audio_sheet_retrieval_tpu_torch.ops.windows import (
+        gather_feature_windows,
+        gather_feature_windows_plain,
+    )
+
+    dev = torch.device("cuda")
+    worst = 0.0
+    # (H4, Wq, C, n_cols, N): the port's first shapes; the serving shape
+    # with 1, 8, 117 and 1,000 windows; a short strip; one column; 1 and 96
+    # channels; a plane of one row; a strip of many segments
+    shapes = [(8, 301, 24, 25, 32), (40, 998, 24, 25, 32),
+              (16, 130, 8, 13, 32), (40, 3019, 24, 50, 480),
+              (40, 3019, 24, 50, 1), (40, 3019, 24, 50, 8),
+              (40, 3019, 24, 50, 117), (40, 3019, 24, 50, 1000),
+              (40, 299, 24, 50, 9), (40, 3019, 24, 1, 64),
+              (40, 3019, 1, 50, 117), (40, 3019, 96, 50, 30),
+              (1, 99, 1, 3, 5), (5, 70_001, 2, 50, 40)]
+    for h4, wq, c, n_cols, n in shapes:
+        last = wq - 2 * (n_cols - 1) - 1   # the last legal start
+        # both ends of the legal range, odd and even, then seeded starts of
+        # both parities
+        starts = torch.cat([
+            torch.tensor([0, 1, last, last - 1], device=dev),
+            torch.randint(0, last + 1, (n,), generator=gen, device=dev)]
+        )[:n].to(torch.int32)
+        for dt in (torch.float32, torch.bfloat16):
+            plane = randn(c, h4, wq).to(dt)
+            got = gather_feature_windows(plane, starts, n_cols)
+            want = gather_feature_windows_plain(plane, starts, n_cols)
+            torch.cuda.synchronize()
+            worst = max(worst, float((got.float() - want.float())
+                                     .abs().max()))
+            assert torch.equal(got, want), f"gather differs {h4, wq, c, dt}"
+        emit("kernels", kernel="gather_feature_windows", H4=h4, Wq=wq, C=c,
+             n_cols=n_cols, N=n, bit_identical=True)
+    # starts out of range: every column outside [0, Wq) reads as the
+    # element type's all-ones pattern, the others as the plane's
+    starts = torch.tensor([-1000, -99, -98, -97, -3, -1, 0, 2920, 2921, 2922,
+                           3000, 3018, 3019, 3020, 2**31 - 1, -2**31],
+                          device=dev, dtype=torch.int32)
+    cols = starts.long()[:, None] + 2 * torch.arange(50, device=dev)
+    inside = ((cols >= 0) & (cols < 3019))[:, None, None, :]
+    for dt, bits in ((torch.float32, torch.int32),
+                     (torch.bfloat16, torch.int16)):
+        plane = randn(24, 40, 3019).to(dt)
+        got = gather_feature_windows(plane, starts, 50).view(bits)
+        want = plane[:, :, cols.clamp(0, 3018)].permute(2, 0, 1, 3).view(bits)
+        want = torch.where(inside, want, torch.full_like(want, -1))
+        assert torch.equal(got, want), f"out-of-range pattern differs {dt}"
+        assert bool((got[0] == -1).all()) and bool((got[6] != -1).any())
+    emit("kernels", kernel="gather_feature_windows", case="out of range",
+         all_ones_pattern=True)
+    before = gather_feature_windows.launches
+    empty = gather_feature_windows(randn(24, 40, 3019),
+                                   torch.zeros(0, dtype=torch.int32,
+                                               device=dev), 50)
+    assert empty.shape == (0, 24, 40, 50)
+    assert gather_feature_windows.launches == before, "N = 0 launched"
+    return worst
 
 
 def phase_kernels(torch):
@@ -290,28 +408,15 @@ def phase_kernels(torch):
             assert bool(torch.isfinite(s[0]).all())
     emit("kernels", kernel="topk_gallery", case="anti/dup/nan", ok=True)
 
-    gather_err = 0.0
-    for h4, wq, c, n_cols, n in [(8, 301, 24, 25, 32), (40, 998, 24, 25, 32),
-                                 (16, 130, 8, 13, 32), (40, 3019, 24, 50, 480)]:
-        smax = wq - 2 * n_cols
-        starts = torch.cat([torch.tensor([0, 1, smax], device=dev),
-                            torch.randint(0, smax, (n - 3,), generator=gen,
-                                          device=dev)]).to(torch.int32)
-        for dt in (torch.float32, torch.bfloat16):
-            plane = randn(c, h4, wq).to(dt)
-            got = gather_feature_windows(plane, starts, n_cols)
-            want = gather_feature_windows_plain(plane, starts, n_cols)
-            gather_err = max(gather_err, float((got.float() - want.float())
-                                               .abs().max()))
-            assert torch.equal(got, want), f"gather differs {h4, wq, c, dt}"
-        emit("kernels", kernel="gather_feature_windows", H4=h4, Wq=wq, C=c,
-             n_cols=n_cols, N=n, bit_identical=True)
-    before = gather_feature_windows.launches
-    empty = gather_feature_windows(randn(24, 40, 3019),
-                                   torch.zeros(0, dtype=torch.int32,
-                                               device=dev), 50)
-    assert empty.shape == (0, 24, 40, 50)
-    assert gather_feature_windows.launches == before, "N = 0 launched"
+    # the evaluation's shapes: every test pair a query and a gallery row
+    for d in (32, 16):
+        g, q = unit(randn(2000, d)), unit(randn(2000, d))
+        err = check_topk(torch, q, g, 25)
+        topk_err = max(topk_err, err)
+        emit("kernels", kernel="topk_gallery", case="evaluation", Q=2000,
+             N=2000, d=d, k=25, max_abs_err=err)
+
+    gather_err = phase_gather_checks(torch, randn, gen)
 
     # times at the main path's shapes: Q = 100 excerpts x the 60-piece
     # gallery (12,000 rows), d = 32, k = 25; the streaming shapes Q = 1 (one
@@ -320,6 +425,7 @@ def phase_kernels(torch):
     for qn, n, k in ((100, 12_000, 25), (100, 100_000, 25),
                      (100, 1_000_000, 25), (1, 12_000, 25), (8, 12_000, 25),
                      (1, 1_000_000, 25), (8, 1_000_000, 25),
+                     (2000, 2000, 25),
                      (100, 100_000, 1024), (100, 100_000, 2048)):
         g, q = unit(randn(n, 32)), unit(randn(qn, 32))
         iters = 5 if k > 128 else 20
@@ -337,12 +443,30 @@ def phase_kernels(torch):
         emit("timing", kernel="topk_gallery", Q=qn, N=n, d=32, k=k, **row)
     plane = randn(24, 40, 3019)
     starts = torch.arange(0, 2920, 25, device=dev, dtype=torch.int32)
-    b_ms, b_by = gather_bound(24, 40, 3019, 50, len(starts))
+    b_ms, b_by = gather_bound(24, 40, 3019, 50, starts.cpu().numpy())
+    # the library's one call for the same function in the same layout: a
+    # gather along the columns of the plane expanded over the windows
+    # (views, nothing copied); timed only, never called by the port
+    idx = (starts.long()[:, None] + 2 * torch.arange(50, device=dev))[
+        :, None, None, :].expand(len(starts), 24, 40, 50)
+    wide = plane[None].expand(len(starts), -1, -1, -1)
+    assert torch.equal(torch.gather(wide, 3, idx),
+                       gather_feature_windows(plane, starts, 50))
+    # an event time of so short a launch is the wrapper's host time, so
+    # the kernel and the library call are also read from the profiler
+    kw = dict(iters=50, warmup=10)
     times["gather"] = dict(
-        ms=cuda_ms(lambda: gather_feature_windows(plane, starts, 50)),
-        plain_ms=cuda_ms(lambda: gather_feature_windows_plain(plane, starts,
-                                                              50)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        ms=cuda_ms(lambda: gather_feature_windows(plane, starts, 50), **kw),
+        plain_ms=cuda_ms(lambda: gather_feature_windows_plain(
+            plane, starts, 50), **kw),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.gather(wide, 3, idx), **kw),
+        device_us=device_us(lambda: gather_feature_windows(
+            plane, starts, 50), "gather_staged"),
+        library_device_us=device_us(lambda: torch.gather(wide, 3, idx)))
+    times["gather"]["share_of_bound"] = \
+        b_ms * 1e3 / times["gather"]["device_us"]
+    assert times["gather"]["device_us"] > 0, "the profiler saw no launch"
     emit("timing", kernel="gather_feature_windows", C=24, H4=40, Wq=3019,
          n_cols=50, N=len(starts), **times["gather"])
     # the kernels line reports each kernel at the main path's shape: Q = 100
@@ -754,13 +878,214 @@ def phase_audio(torch, ctx):
     return launches
 
 
+# --- phase 10: evaluate / refine ---------------------------------------------------
+
+EVAL_HITS_SLACK = 1      # a near-tie may swap two neighbours between two
+EVAL_MRR_ATOL = 1e-3     # float32 products taken in another order
+REFIT_COEFFS_ATOL = 1e-3  # float32 moments of 10,000 rows against float64
+EVAL_N_TEST = 2000        # run_eval's --n_test
+REFIT_N_TRAIN = 10_000    # train pairs of the refit
+REFIT_PIECES = dict(n_train=60, n_valid=1, n_test=12, n_onsets=200)
+
+
+def numpy_cca_coeffs(H1: np.ndarray, H2: np.ndarray, r: float = 1e-3):
+    """Canonical correlations of two [n, d] views in float64 (the 'svd'
+    family of the offline fit, ridge ``r`` on both covariances)."""
+    H1, H2 = np.asarray(H1, np.float64), np.asarray(H2, np.float64)
+    n, d = H1.shape
+    H1c, H2c = H1 - H1.mean(0), H2 - H2.mean(0)
+    S11 = H1c.T @ H1c / (n - 1) + r * np.eye(d)
+    S22 = H2c.T @ H2c / (n - 1) + r * np.eye(d)
+    S12 = H1c.T @ H2c / (n - 1)
+
+    def inv_sqrt(S):
+        w, A = np.linalg.eigh(S)
+        return (A / np.sqrt(w)) @ A.T
+
+    return np.linalg.svd(inv_sqrt(S11) @ S12 @ inv_sqrt(S22),
+                         compute_uv=False)
+
+
+def check_eval_ranks(torch, dev, lv1: np.ndarray, lv2: np.ndarray,
+                     results: dict):
+    """The evaluation's ranks on the card: the top-k kernel's equal the full
+    argsort's wherever found (but where the match ties another row within
+    float32 rounding), and ``results`` (what ``run_eval.main`` returned)
+    equals a replay on the host copy of the codes."""
+    from audio_sheet_retrieval_tpu_torch.ops import metrics
+
+    n = lv1.shape[0]
+    before = read_launches()["topk_gallery"]
+    ranks, found = metrics.retrieval_ranks_topk(lv1, lv2, 25, device=dev)
+    assert read_launches()["topk_gallery"] == before + 1
+    full, _ = metrics.retrieval_ranks(lv1, lv2, device=dev)
+    differ = np.nonzero(found & (ranks != full))[0]
+    if len(differ):
+        scores = (torch.from_numpy(lv1[differ]) @ torch.from_numpy(lv2).T
+                  ).numpy()
+        for row, i in zip(scores, differ):
+            gaps = np.abs(np.delete(row, i) - row[i])
+            assert gaps.min() <= 2e-6, f"query {i}: ranks differ without a tie"
+    assert (full[~found] > 25).all()
+    # plain replay: the same evaluation on the CPU copy of the codes
+    _, med, _, hits, mrr = metrics.eval_retrieval(lv1, lv2, device="cpu")
+    for k, v in hits.items():
+        got = results["recall_at_k"]["%d" % k] * n / 100.0
+        assert abs(got - v) <= EVAL_HITS_SLACK, (k, got, v)
+    assert abs(results["map"] - mrr) <= EVAL_MRR_ATOL, (results["map"], mrr)
+    assert abs(results["med_rank"] - med) <= 1.0, (results["med_rank"], med)
+    return dict(found=int(found.sum()), ranks_differ_on_ties=len(differ),
+                hits_replay={int(k): v for k, v in hits.items()},
+                mrr_replay=mrr)
+
+
+def phase_eval_refine(torch, ctx):
+    from audio_sheet_retrieval_tpu_torch.cli import refine_cca, run_eval
+    from audio_sheet_retrieval_tpu_torch.data import msmd, synthetic
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+    from audio_sheet_retrieval_tpu_torch.ops import cca as cca_ops
+    from audio_sheet_retrieval_tpu_torch.ops import metrics
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        RetrievalWrapper,
+        load_checkpoint_tree,
+    )
+    from audio_sheet_retrieval_tpu_torch.utils import io as uio
+
+    dev, cfg, ckpt = ctx["dev"], ctx["cfg"], ctx["ckpt"]
+    assert run_eval.build_arg_parser().get_default("device") == "cuda"
+    assert refine_cca.build_arg_parser().get_default("device") == "cuda"
+    wrapper = RetrievalWrapper(cfg, params=ctx["params"], device=dev)
+
+    def cli_codes(w):
+        """The codes ``run_eval.main`` evaluates: the CLI's synthetic test
+        pool, sampled at ``EVAL_N_TEST`` linspace indices."""
+        pool = msmd.select_data("synthetic", None, None, 23,
+                                test_only=True)["test"]
+        X1, X2 = pool[np.linspace(0, pool.shape[0] - 1,
+                                  EVAL_N_TEST).astype(int)]
+        return w.compute_view_1(X1), w.compute_view_2(X2), pool.shape[0]
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rows = {}
+    common = ["--data", "synthetic", "--n_test", str(EVAL_N_TEST)]
+    for direction, flag in (("S2A", []), ("A2S", ["--V2_to_V1"])):
+        t0 = time.perf_counter()
+        rows[direction] = run_eval.main(common + flag + ["--param_file",
+                                                         ckpt])
+        rows[direction + "_seconds"] = time.perf_counter() - t0
+    launches = read_launches()   # of the entry points alone, not the checks
+    assert launches["topk_gallery"] >= 2, "run_eval ran no top-k kernel"
+    lv1, lv2, n_pool = cli_codes(wrapper)
+    checks = {"S2A": check_eval_ranks(torch, dev, lv1, lv2, rows["S2A"]),
+              "A2S": check_eval_ranks(torch, dev, lv2, lv1, rows["A2S"])}
+    emit("evaluate", n_test=EVAL_N_TEST, test_pool=n_pool, results=rows,
+         checks=checks, launches=launches)
+
+    # the refit at full size: 60 train pieces of 200 onsets
+    t0 = time.perf_counter()
+    data = synthetic.load_synthetic_retrieval(**REFIT_PIECES)
+    pools_s = time.perf_counter() - t0
+    n_train = REFIT_N_TRAIN
+    assert data["train"].shape[0] >= n_train, data["train"].shape
+    assert data["test"].shape[0] >= EVAL_N_TEST, data["test"].shape
+    X1, X2 = data["train"][0:n_train]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat1, lat2 = refine_cca.pre_cca_latents(ctx["params"], cfg, X1, X2)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit = cca_ops.cca_fit(lat1, lat2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    new_params, res = refine_cca.refine(ctx["params"], cfg, data,
+                                        n_train=n_train)
+    assert res.U.device == ctx["params"].device
+    assert float((res.coeffs - fit.coeffs).abs().max()) <= 1e-5
+    want = numpy_cca_coeffs(lat1.cpu().numpy(), lat2.cpu().numpy())
+    coeffs_err = float(np.abs(res.coeffs.cpu().numpy() - want).max())
+    assert coeffs_err <= REFIT_COEFFS_ATOL, coeffs_err
+    # the other two families and the summed moments of two shards, on the
+    # card: the same correlations (the eigen families take them as square
+    # roots of float32 eigenvalues, so one near zero moves by up to
+    # sqrt(1e-6 / 1) = 1e-3 more)
+    family_err = {}
+    for method in ("eigen", "eigen-4"):
+        alt = cca_ops.cca_fit(lat1, lat2, method=method)
+        family_err[method] = float(np.abs(alt.coeffs.cpu().numpy()
+                                          - want).max())
+        assert family_err[method] <= 3 * REFIT_COEFFS_ATOL, family_err
+    half = n_train // 2
+    summed = cca_ops.CCAMoments(*(a + b for a, b in zip(
+        cca_ops.cca_moments(lat1[:half], lat2[:half]),
+        cca_ops.cca_moments(lat1[half:], lat2[half:]))))
+    family_err["summed moments"] = float(
+        (cca_ops.cca_fit_from_moments(summed).coeffs - res.coeffs)
+        .abs().max())
+    assert family_err["summed moments"] <= 1e-4, family_err
+
+    te = data["test"]
+    T1, T2 = te[np.linspace(0, te.shape[0] - 1, EVAL_N_TEST).astype(int)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, cfg.name + "_est_UV", "params.pkl")
+        uio.save_pytree(out, refine_cca.refined_tree(
+            load_checkpoint_tree(ckpt, cfg), res),
+            meta={"model": cfg.name, "refined": True, "n_train": n_train})
+        reloaded = RetrievalWrapper(cfg, param_file=out, device=dev)
+        refined = RetrievalWrapper(cfg, params=new_params, device=dev)
+        codes = {name: (w.compute_view_1(T1), w.compute_view_2(T2))
+                 for name, w in (("before", wrapper), ("after", refined),
+                                 ("reloaded", reloaded))}
+        reload_err = max(float(np.abs(a - b).max()) for a, b in zip(
+            codes["after"], codes["reloaded"]))
+        assert reload_err <= 1e-6, reload_err
+        zero_launches()   # the checks above launched the kernel too
+        est = run_eval.main(common + ["--estimate_UV", "--exp_root", tmp])
+        for name, count in read_launches().items():
+            launches[name] += count
+        assert launches["topk_gallery"] >= 3
+        e1, e2, _ = cli_codes(reloaded)
+        est_check = check_eval_ranks(torch, dev, e1, e2, est)
+    mrr = {name: metrics.eval_retrieval(c1, c2, device=dev)[4]
+           for name, (c1, c2) in codes.items()}
+    # unequal galleries on the card (two gallery rows a query, two queries
+    # a gallery row) and the packed 8-vector: the CPU's answers
+    c1, c2 = codes["after"]
+    for a, b in ((c1[::2], c2), (c1, c2[::2])):
+        on_card = metrics.eval_retrieval(a, b, device=dev)
+        on_cpu = metrics.eval_retrieval(a, b, device="cpu")
+        assert all(abs(on_card[3][k] - on_cpu[3][k]) <= EVAL_HITS_SLACK
+                   for k in on_cpu[3]), (on_card, on_cpu)
+        assert abs(on_card[4] - on_cpu[4]) <= EVAL_MRR_ATOL
+    packed = metrics.unpack_retrieval_metrics(metrics.retrieval_metrics_device(
+        torch.from_numpy(c1).to(dev), torch.from_numpy(c2).to(dev)))
+    whole = metrics.eval_retrieval(c1, c2, device=dev)
+    assert all(abs(packed[3][k] - whole[3][k]) <= EVAL_HITS_SLACK
+               for k in whole[3]) and abs(packed[4] - whole[4]) <= \
+        EVAL_MRR_ATOL, (packed, whole)
+    emit("refine", n_train=n_train, train_pool=data["train"].shape[0],
+         pools_seconds=pools_s, embed_seconds=embed_s, fit_seconds=fit_s,
+         pairs_per_s=n_train / embed_s,
+         coeffs_max_abs_err_vs_float64=coeffs_err,
+         other_fits_coeffs_max_abs_err=family_err,
+         canonical_correlation=float(res.coeffs.mean()),
+         reload_max_abs_err=reload_err, mrr_distinct_test_pairs=mrr,
+         estimate_UV_results=est, estimate_UV_check=est_check,
+         max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+         launches=launches)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return launches
+
+
 def main() -> int:
     torch = require_cuda()
     smi = phase_device(torch)
     phase_build()
     kernel_stats = phase_kernels(torch)
     ctx, launches = phase_serving(torch)
-    for phase in (phase_s2a, phase_streaming, phase_audio):
+    for phase in (phase_s2a, phase_streaming, phase_audio,
+                  phase_eval_refine):
         for name, n in phase(torch, ctx).items():
             launches[name] += n
     rows = []

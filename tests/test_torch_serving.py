@@ -300,6 +300,18 @@ srv.run(specs[0][:, :45], on_update=lambda *a: None)
 srv.initialize_audio_db_from_specs_device(["a", "b"], specs)
 srv.detect_performance_from_sheet(images[0], n_samples=4)
 srv.detect_performance(images[0], n_samples=4)
+import tempfile
+from audio_sheet_retrieval_tpu_torch.cli import refine_cca, run_eval
+ckpt = assets.asset_path("synth_serving_ckpt.pkl")
+run_eval.main(["--data", "synthetic", "--n_test", "20", "--device", "cpu",
+               "--param_file", ckpt])
+with tempfile.TemporaryDirectory() as tmp:
+    refined = refine_cca.main(["--data", "synthetic", "--n_train", "60",
+                               "--device", "cpu", "--param_file", ckpt,
+                               "--exp_root", tmp])
+    run_eval.main(["--data", "synthetic", "--n_test", "20", "--device",
+                   "cpu", "--param_file", refined, "--V2_to_V1", "--max_dim",
+                   "16"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "audio_sheet_retrieval_tpu"))
 print("JAX_MODULES", loaded)
@@ -308,8 +320,9 @@ print("JAX_MODULES", loaded)
 
 def test_port_never_imports_jax():
     """Every module of the port and chip_smoke.py import, and the serving
-    paths run, with the JAX package refused by an import hook; afterwards
-    no module of jax or of the JAX package is loaded."""
+    paths and the evaluation and CCA-refit CLIs run, with the JAX package
+    refused by an import hook; afterwards no module of jax or of the JAX
+    package is loaded."""
     res = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

@@ -124,12 +124,120 @@ def test_retrieval_pool_windows_bit_for_bit(pieces, contexts):
     jpool = jpools.AudioScoreRetrievalPool(
         jimg, jspec, jo2c, data_augmentation=jpools.NO_AUGMENT,
         shuffle=False, **contexts)
-    tpool = tpools.AudioScoreRetrievalPool(jimg, jspec, jo2c, **contexts)
+    assert tpools.NO_AUGMENT == jpools.NO_AUGMENT
+    tpool = tpools.AudioScoreRetrievalPool(
+        jimg, jspec, jo2c, data_augmentation=tpools.NO_AUGMENT,
+        shuffle=False, **contexts)
     assert tpool.shape == jpool.shape and tpool.shape[0] > 100
     np.testing.assert_array_equal(tpool.train_entities, jpool.train_entities)
     for key in (slice(0, tpool.shape[0]), 7):
         for got, want in zip(tpool[key], jpool[key]):
             np.testing.assert_array_equal(got, want)
+
+
+FULL_AUGMENT = os.path.join(REPO, "exp_configs", "mutopia_full_aug.yaml")
+
+
+def _assert_pools_equal(tpool, jpool, keys):
+    assert tpool.shape == jpool.shape
+    np.testing.assert_array_equal(tpool.train_entities, jpool.train_entities)
+    for key in keys:  # the same draws in the same order on both sides
+        for got, want in zip(tpool[key], jpool[key]):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("augment", [
+    None, dict(jpools.NO_AUGMENT, interpolate=4),
+    dict(jpools.NO_AUGMENT, system_translation=5, onset_translation=1,
+         spec_padding=3, sheet_scaling=None)],
+    ids=["no_augment", "interpolate", "translations_and_padding"])
+def test_train_pool_shuffled_bit_for_bit(pieces, augment):
+    """The refit's train pool: shuffled from a seeded rng, with every
+    augmentation that draws from it but the sheet scaling."""
+    (jimg, jspec, jo2c), _ = pieces
+    kw = dict(data_augmentation=augment, shuffle=True)
+    jpool = jpools.AudioScoreRetrievalPool(
+        jimg, jspec, jo2c, rng=np.random.default_rng(23), **kw)
+    tpool = tpools.AudioScoreRetrievalPool(
+        jimg, jspec, jo2c, rng=np.random.default_rng(23), **kw)
+    assert tpool.shape[0] > 100
+    assert not np.array_equal(tpool.train_entities,
+                              np.sort(tpool.train_entities, axis=0))
+    _assert_pools_equal(tpool, jpool, (slice(0, 64), 7, slice(100, 130)))
+    tpool.reset_batch_generator()
+    jpool.reset_batch_generator()
+    np.testing.assert_array_equal(tpool.train_entities, jpool.train_entities)
+
+
+def test_train_pool_sheet_scaling_matches_cv2(pieces):
+    """The sheet scaling resizes by nearest neighbour: the JAX package
+    through cv2 where it is installed, the port through numpy with the same
+    index rule. Held bit for bit over the yaml's [0.95, 1.05] range."""
+    (jimg, jspec, jo2c), _ = pieces
+    exp = tconfig.load_experiment_config(FULL_AUGMENT)
+    assert exp.augment == jconfig.load_experiment_config(
+        FULL_AUGMENT).augment
+    assert exp.augment["sheet_scaling"] == [0.95, 1.05]
+    kw = dict(data_augmentation=exp.augment, shuffle=True)
+    jpool = jpools.AudioScoreRetrievalPool(
+        jimg, jspec, jo2c, rng=np.random.default_rng(5), **kw)
+    tpool = tpools.AudioScoreRetrievalPool(
+        jimg, jspec, jo2c, rng=np.random.default_rng(5), **kw)
+    _assert_pools_equal(tpool, jpool, (slice(0, 200),))
+
+
+@pytest.mark.parametrize("config", [None, "mutopia_no_aug", FULL_AUGMENT])
+def test_load_experiment_config_matches_jax(config):
+    got = tconfig.load_experiment_config(config)
+    want = jconfig.load_experiment_config(config)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert tconfig.EXP_CONFIG_DIR == jconfig.EXP_CONFIG_DIR
+
+
+@pytest.mark.parametrize("test_only", [False, True])
+def test_select_data_synthetic_bit_for_bit(test_only):
+    kw = dict(seed=11, test_only=test_only, max_train_pieces=2)
+    got = tmsmd.select_data("synthetic", None, None, **kw)
+    want = jmsmd.select_data("synthetic", None, None, **kw)
+    assert got["train_tag"] == want["train_tag"] == "synthetic"
+    for name in ("train", "valid", "test"):
+        if want[name] is None:
+            assert got[name] is None and test_only
+            continue
+        _assert_pools_equal(got[name], want[name], (slice(0, 40),))
+    same = tsyn.load_synthetic_retrieval(seed=11, test_only=True)
+    _assert_pools_equal(same["test"], got["test"], (slice(0, 10),))
+
+
+def test_select_data_npz_bit_for_bit(tmp_path, pieces):
+    (jimg, jspec, jo2c), _ = pieces
+    names = ["p0", "p1", "p2"]
+    for name, im, sp, oc in zip(names, jimg, jspec, jo2c):
+        np.savez(str(tmp_path / (name + ".npz")), image=im,
+                 **{f"spec_{k}": s for k, s in enumerate(sp)},
+                 **{f"o2c_{k}": o for k, o in enumerate(oc)})
+    split = tmp_path / "split.yaml"
+    # a missing piece is skipped with a message, as the reference does
+    split.write_text("train: [p0, p1, missing]\nvalid: [p1]\ntest: [p2]\n")
+    src = "npz:" + str(tmp_path)
+    for kw in (dict(), dict(max_train_pieces=1), dict(test_only=True)):
+        got = tmsmd.select_data(src, str(split), FULL_AUGMENT, seed=3, **kw)
+        want = jmsmd.select_data(src, str(split), FULL_AUGMENT, seed=3, **kw)
+        for name in ("train", "valid", "test"):
+            if want[name] is None:
+                assert got[name] is None
+                continue
+            _assert_pools_equal(got[name], want[name], (slice(0, 50),))
+    im, sp, oc = tmsmd.load_piece_list(["p0", "missing", "p2"], str(tmp_path))
+    assert len(im) == len(sp) == len(oc) == 2
+
+
+def test_select_data_mutopia_raises_with_the_reason():
+    with pytest.raises(NotImplementedError, match="msmd"):
+        tmsmd.select_data("mutopia", "split.yaml", None)
+    with pytest.raises(ValueError, match="unknown data source"):
+        tmsmd.select_data("nope", None, None)
 
 
 @pytest.mark.parametrize("n,batch", [(7, 3), (6, 3), (1, 5), (10, 10)])
