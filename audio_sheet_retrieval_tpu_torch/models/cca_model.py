@@ -1,23 +1,32 @@
-"""Cross-modal retrieval model (eval mode): twin encoders + CCA head + L2.
+"""Cross-modal retrieval model: twin encoders + CCA head + L2.
 
 Parity with reference:models/mutopia_ccal_cont.py:64-145 and the JAX
 ``models/cca_model.py``. In eval mode the CCA head is a per-view affine
 projection, so each view embeds on its own. Inputs are NCHW: view 1 a
 prepared sheet batch [B, 1, 80, 100] (``train.engine.prepare_view1_device``),
-view 2 a spectrogram batch [B, 1, 92, 42]. The encoders carry BN folded
+view 2 a spectrogram batch [B, 1, 92, 42]. The eval encoders carry BN folded
 into their convolutions (the loader's ``encoder.fold_batch_norm``), the JAX
 package's serving fast path, so one forward serves every caller.
+
+Training holds a ``TrainParams``: two ``encoder.TrainEncoder``s (BN apart
+from the convs) and the CCA state, U and V trainable parameters when the
+model has no CCALayer (``use_ccal=False``, LearnedCCALayer).
+``forward_train`` runs both views, the CCA layer and the length norm;
+``TrainParams.fold()`` gives the eval ``ModelParams``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple
+from typing import List, NamedTuple, Tuple
 
+import numpy as np
 import torch
+from torch import nn
 
 from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import encoder as enc
+from audio_sheet_retrieval_tpu_torch.ops import cca as cca_ops
 from audio_sheet_retrieval_tpu_torch.ops.cca import CCAState
 
 
@@ -93,3 +102,133 @@ def embed_view2(params: ModelParams, x2: torch.Tensor,
     """Audio embedding: encoder -> affine CCA -> L2."""
     h2 = pre_cca_latent_v2(params, x2, cfg)
     return length_norm((h2 - params.cca.mean2) @ params.cca.V)
+
+
+# --- training ----------------------------------------------------------------
+
+
+class CCAHead(nn.Module):
+    """The CCA state as module tensors: buffers, but U and V parameters
+    when ``trainable_uv`` (LearnedCCALayer)."""
+
+    def __init__(self, dim: int, trainable_uv: bool, *, device):
+        super().__init__()
+        for name in CCAState._fields:
+            shape = (dim,) if name.startswith("mean") else (dim, dim)
+            t = torch.zeros(shape, dtype=torch.float32, device=device)
+            if trainable_uv and name in ("U", "V"):
+                setattr(self, name, nn.Parameter(t))
+            else:
+                self.register_buffer(name, t)
+
+    def state(self) -> CCAState:
+        return CCAState(*(getattr(self, f) for f in CCAState._fields))
+
+
+class NewState(NamedTuple):
+    """The running state a training forward computes: each view's BN
+    ``(mean, inv_std)`` per block and the CCA state, all detached."""
+
+    bn1: List[Tuple[torch.Tensor, torch.Tensor]]
+    bn2: List[Tuple[torch.Tensor, torch.Tensor]]
+    cca: CCAState
+
+
+class TrainParams(nn.Module):
+    """Both views' train-mode encoders and the CCA head. Its parameters are
+    the trainable set (``w``, ``beta``, ``gamma`` of every block, plus U
+    and V without CCAL); its buffers the running state."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.view1 = enc.TrainEncoder(cfg.input_shape_1[0], cfg.num_filters,
+                                      cfg.dim_latent, device=device)
+        self.view2 = enc.TrainEncoder(cfg.input_shape_2[0], cfg.num_filters,
+                                      cfg.dim_latent, device=device)
+        self.head = CCAHead(cfg.dim_latent, not cfg.use_ccal, device=device)
+
+    @property
+    def cca(self) -> CCAState:
+        return self.head.state()
+
+    @property
+    def device(self) -> torch.device:
+        return self.head.mean1.device
+
+    @torch.no_grad()
+    def write_state(self, new: NewState) -> None:
+        """Write a training forward's running state back (U and V only
+        where they are not trained)."""
+        self.view1.set_bn_stats(new.bn1)
+        self.view2.set_bn_stats(new.bn2)
+        for name, t in zip(CCAState._fields, new.cca):
+            dst = getattr(self.head, name)
+            if not isinstance(dst, nn.Parameter):
+                dst.copy_(t)
+
+    def fold(self) -> ModelParams:
+        """The eval ``ModelParams``: BN folded into each conv, the CCA
+        state copied (this module stays as it is)."""
+        return ModelParams(self.view1.fold(), self.view2.fold(),
+                           CCAState(*(t.detach().clone() for t in self.cca)))
+
+
+def init_model(generator: torch.Generator, cfg: ModelConfig, *,
+               device) -> TrainParams:
+    """He-uniform encoders (view 1, then view 2, drawn from ``generator``)
+    and a zero CCA state; without CCAL, U and V He-uniform too
+    (LearnedCCALayer, mutopia_ccal_cont.py:130). The JAX package draws
+    from its own PRNG, so the two packages share an init only through a
+    numpy tree (``lasagne_import.train_params_from_numpy``)."""
+    p = TrainParams(cfg, device=device)
+    v1 = enc.init_encoder(generator, cfg.input_shape_1[0], cfg.num_filters,
+                          cfg.dim_latent, device=device)
+    v2 = enc.init_encoder(generator, cfg.input_shape_2[0], cfg.num_filters,
+                          cfg.dim_latent, device=device)
+    p.view1.load_state_dict(v1.state_dict())
+    p.view2.load_state_dict(v2.state_dict())
+    if not cfg.use_ccal:
+        d = cfg.dim_latent
+        bound = float(np.sqrt(6.0 / d))
+        with torch.no_grad():
+            for name in ("U", "V"):
+                u = torch.rand((d, d), generator=generator) * (2 * bound)
+                getattr(p.head, name).copy_(u - bound)
+    return p
+
+
+def forward_train(params: TrainParams, x1: torch.Tensor, x2: torch.Tensor,
+                  cfg: ModelConfig):
+    """Training forward of both views (JAX ``models/cca_model.py:60-104``).
+
+    -> (lv1, lv2, new_state, corr): L2-normalized projected latents, the
+    ``NewState`` (BN EMA and CCA state; ``params`` is not changed), and the
+    monitored canonical correlations.
+    """
+    check_numerics(cfg)
+    h1, bn1 = params.view1.forward_train(x1, cfg.bn_epsilon, cfg.bn_alpha)
+    h2, bn2 = params.view2.forward_train(x2, cfg.bn_epsilon, cfg.bn_alpha)
+    state = params.cca
+    if cfg.use_ccal:
+        # polar whitening changes the monitored corr; with a nonzero
+        # corr-loss weight the reference eigh form, and gradients through
+        # the whitening, are required
+        whitening = cfg.whitening if cfg.weight_tno == 0.0 else "eigh"
+        grad_mode = cfg.cca_grad if cfg.weight_tno == 0.0 else "full"
+        lv1, lv2, new_cca, corr = cca_ops.cca_layer_train(
+            h1, h2, state, r1=cfg.r1, r2=cfg.r2, rT=cfg.rT, alpha=cfg.alpha,
+            whitening=whitening, grad_mode=grad_mode)
+    else:
+        # LearnedCCALayer: U / V trained; batch-mean centring, running
+        # means blended with alpha (lasagne cca.py:239-323)
+        a = cfg.alpha
+        mean1 = (1.0 - a) * state.mean1 + a * h1.mean(dim=0)
+        mean2 = (1.0 - a) * state.mean2 + a * h2.mean(dim=0)
+        lv1 = (h1 - mean1) @ state.U
+        lv2 = (h2 - mean2) @ state.V
+        corr = torch.zeros(cfg.dim_latent, dtype=torch.float32,
+                           device=h1.device)
+        new_cca = state._replace(U=state.U.detach(), V=state.V.detach(),
+                                 mean1=mean1.detach(), mean2=mean2.detach())
+    return (length_norm(lv1), length_norm(lv2), NewState(bn1, bn2, new_cca),
+            corr)

@@ -1,4 +1,4 @@
-"""Twin VGG-style convolutional encoder (eval mode), PyTorch.
+"""Twin VGG-style convolutional encoder, PyTorch: eval and train forms.
 
 Architecture of reference:models/mutopia_ccal_cont.py:54-122, as in the JAX
 ``models/encoder.py``: 4x [conv3x3-BN-ELU x2 + maxpool2], then
@@ -16,6 +16,14 @@ it once into each conv's weight and bias (``fold_batch_norm``) and the
 forward is conv + bias, ELU, pool: no separate BN pass over the
 activations.
 
+Training (``TrainEncoder``, JAX ``models/encoder.py:103-150``) keeps BN
+apart: conv without bias, then the batch mean and the biased variance over
+(N, H, W), ``inv_std = rsqrt(var + eps)``, gradients through both; the
+running ``mean`` and ``inv_std`` (buffers) follow an EMA with rate
+``bn_alpha`` on ``inv_std`` itself, as Lasagne does (``nn.BatchNorm2d``
+keeps an unbiased variance). ``TrainEncoder.fold`` gives the eval
+``Encoder``, so evaluation and serving keep one forward.
+
 Numerics: float32 with TF32 off (the JAX package pins HIGHEST precision for
 f32 convs). cuDNN runs f32 convolutions in TF32 unless told otherwise, so
 building an encoder switches TF32 off for convolutions and matmuls
@@ -24,7 +32,7 @@ building an encoder switches TF32 off for convolutions and matmuls
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,3 +118,115 @@ def fold_batch_norm(blk: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     s = f32["inv_std"] * f32["gamma"]
     return {"w": f32["w"] * s[:, None, None, None],
             "b": f32["beta"] - f32["mean"] * s}
+
+
+# --- training form -------------------------------------------------------------
+
+
+class TrainBlock(nn.Module):
+    """conv (no bias) -> BN with Lasagne's running ``mean`` / ``inv_std``.
+    ``w`` is OIHW; ``w``, ``beta`` and ``gamma`` are the trainable set."""
+
+    def __init__(self, c_in: int, c_out: int, ksize: int, *, device):
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device=device)
+        self.w = nn.Parameter(torch.zeros((c_out, c_in, ksize, ksize), **f32))
+        self.beta = nn.Parameter(torch.zeros(c_out, **f32))
+        self.gamma = nn.Parameter(torch.ones(c_out, **f32))
+        self.register_buffer("mean", torch.zeros(c_out, **f32))
+        self.register_buffer("inv_std", torch.ones(c_out, **f32))
+
+    def numpy_block(self) -> Dict[str, np.ndarray]:
+        """{w (OIHW), beta, gamma, mean, inv_std} as float32 host arrays."""
+        return {k: getattr(self, k).detach().cpu().numpy()
+                for k in ("w", "beta", "gamma", "mean", "inv_std")}
+
+
+BNStats = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class TrainEncoder(nn.Module):
+    """One view's encoder with BN apart from the convs: [B, C, H, W] ->
+    [B, dim_latent]. ``forward_train`` uses batch statistics; ``forward``
+    (eval) the running ones."""
+
+    def __init__(self, in_channels: int, num_filters: int, dim_latent: int,
+                 *, device):
+        super().__init__()
+        pin_full_f32()
+        chans = block_channels(num_filters, dim_latent)
+        c_ins = [in_channels] + chans[:-1]
+        self.blocks = nn.ModuleList(
+            TrainBlock(ci, co, 1 if i == N_CONV_BLOCKS - 1 else 3,
+                       device=device)
+            for i, (ci, co) in enumerate(zip(c_ins, chans)))
+
+    def _run(self, x: torch.Tensor, stats: Optional[BNStats],
+             bn_epsilon: float = 1e-4):
+        h = x
+        for i, blk in enumerate(self.blocks):
+            h = F.conv2d(h, blk.w, padding=blk.w.shape[-1] // 2)
+            if stats is None:
+                mu, inv_std = blk.mean, blk.inv_std
+            else:
+                var, mu = torch.var_mean(h, dim=(0, 2, 3), correction=0)
+                inv_std = torch.rsqrt(var + bn_epsilon)
+                stats.append((mu.detach(), inv_std.detach()))
+            h = ((h - mu[:, None, None]) * (inv_std * blk.gamma)[:, None, None]
+                 + blk.beta[:, None, None])
+            if i < N_CONV_BLOCKS - 1:
+                h = F.elu(h)
+                if pools_after(i):
+                    h = maxpool2(h)
+        return h.mean(dim=(2, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval BN with the running statistics (the unfolded form of
+        ``fold()``'s forward)."""
+        return self._run(x, None)
+
+    def forward_train(self, x: torch.Tensor, bn_epsilon: float = 1e-4,
+                      bn_alpha: float = 1e-2):
+        """-> (latent, new running statistics): batch-statistics BN; the new
+        ``(mean, inv_std)`` of each block are the EMA of the running ones
+        with the batch's, detached, for ``set_bn_stats`` to write back."""
+        batch: BNStats = []
+        latent = self._run(x, batch, bn_epsilon)
+        new = [((1.0 - bn_alpha) * blk.mean + bn_alpha * mu,
+                (1.0 - bn_alpha) * blk.inv_std + bn_alpha * inv_std)
+               for blk, (mu, inv_std) in zip(self.blocks, batch)]
+        return latent, new
+
+    @torch.no_grad()
+    def set_bn_stats(self, stats: Sequence[Tuple[torch.Tensor,
+                                                 torch.Tensor]]) -> None:
+        for blk, (mean, inv_std) in zip(self.blocks, stats):
+            blk.mean.copy_(mean)
+            blk.inv_std.copy_(inv_std)
+
+    def fold(self) -> Encoder:
+        """The eval ``Encoder`` with each block's running BN folded into
+        its conv (``fold_batch_norm``), on this encoder's device."""
+        w0, wl = self.blocks[0].w, self.blocks[-1].w
+        e = Encoder(w0.shape[1], w0.shape[0], wl.shape[0], device=w0.device)
+        with torch.no_grad():
+            for mod, blk in zip(e.blocks, self.blocks):
+                for key, src in fold_batch_norm(blk.numpy_block()).items():
+                    getattr(mod, key).copy_(torch.from_numpy(src))
+        return e
+
+
+def init_encoder(generator: torch.Generator, in_channels: int,
+                 num_filters: int, dim_latent: int, *, device) -> TrainEncoder:
+    """He-uniform conv init (lasagne init.HeUniform,
+    mutopia_ccal_cont.py:45): U(-b, b), b = sqrt(6 / fan_in), drawn on the
+    CPU from ``generator`` block by block; BN beta 0, gamma 1, running mean
+    0, inv_std 1."""
+    e = TrainEncoder(in_channels, num_filters, dim_latent, device=device)
+    with torch.no_grad():
+        for blk in e.blocks:
+            c_out, c_in, kh, kw = blk.w.shape
+            bound = float(np.sqrt(6.0 / (kh * kw * c_in)))
+            w = torch.rand(blk.w.shape, generator=generator) * (2 * bound)
+            blk.w.copy_(w - bound)
+    return e

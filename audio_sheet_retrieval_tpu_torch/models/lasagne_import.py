@@ -11,7 +11,9 @@ Lasagne kernels are OIHW cross-correlation (cuDNN, flip_filters=False), the
 layout ``F.conv2d`` takes, so they load as they are. The JAX package keeps
 HWIO kernels; ``params_from_numpy`` transposes them (3, 2, 0, 1). Either
 way each block's eval BN is folded into its conv at load
-(``encoder.fold_batch_norm``).
+(``encoder.fold_batch_norm``). For training, ``train_params_from_numpy``
+builds the unfolded ``cca_model.TrainParams`` from the same tree and
+``train_params_to_numpy`` gives the tree back (what ``fit`` dumps).
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ import torch
 
 from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import encoder as enc
-from audio_sheet_retrieval_tpu_torch.models.cca_model import ModelParams
+from audio_sheet_retrieval_tpu_torch.models.cca_model import (
+    ModelParams,
+    TrainParams,
+)
 from audio_sheet_retrieval_tpu_torch.ops.cca import CCAState
 
 ARRAYS_PER_BLOCK = 5
@@ -150,3 +155,52 @@ def params_from_numpy(tree, *, device) -> ModelParams:
 
     view1, view2, cca = tree
     return ModelParams(view(view1), view(view2), _cca_state(cca, device))
+
+
+def train_params_from_numpy(tree, cfg: ModelConfig, *, device) -> TrainParams:
+    """The JAX package's unfolded numpy tree (as ``params_from_numpy``
+    takes it; ``retrieval.wrapper.load_checkpoint_tree`` returns one) ->
+    ``TrainParams`` on ``device``: kernels HWIO -> OIHW, BN and the CCA
+    state as they are; ``cfg`` says whether U and V are trained."""
+    params = TrainParams(cfg, device="cpu")
+    view1, view2, cca = tree
+    with torch.no_grad():
+        for enc_mod, v in ((params.view1, view1), (params.view2, view2)):
+            if len(v["blocks"]) != len(enc_mod.blocks):
+                raise ValueError(f"{len(v['blocks'])} blocks, want "
+                                 f"{len(enc_mod.blocks)}")
+            for mod, blk in zip(enc_mod.blocks, v["blocks"]):
+                src = dict(blk, w=np.transpose(np.asarray(blk["w"]),
+                                               (3, 2, 0, 1)))
+                for key in _BLOCK_KEYS:
+                    dst = getattr(mod, key)
+                    a = np.asarray(src[key], np.float32)
+                    if a.shape != tuple(dst.shape):
+                        raise ValueError(f"{key} has shape {a.shape}, want "
+                                         f"{tuple(dst.shape)}")
+                    dst.copy_(torch.from_numpy(a))
+        for name, a in zip(CCAState._fields, cca):
+            dst = getattr(params.head, name)
+            a = np.asarray(a, np.float32)
+            if a.shape != tuple(dst.shape):
+                raise ValueError(f"CCA param {name} has shape {a.shape}, "
+                                 f"want {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(a))
+    return params.to(device)
+
+
+def train_params_to_numpy(params: TrainParams) -> ModelParams:
+    """The inverse of ``train_params_from_numpy``: the unfolded tree with
+    numpy leaves, kernels HWIO (what ``utils.io.save_pytree`` writes and
+    both packages load)."""
+    def view(e):
+        blocks = []
+        for mod in e.blocks:
+            blk = mod.numpy_block()
+            blk["w"] = np.transpose(blk["w"], (2, 3, 1, 0))  # OIHW -> HWIO
+            blocks.append(blk)
+        return {"blocks": blocks}
+
+    return ModelParams(view(params.view1), view(params.view2),
+                       CCAState(*(t.detach().cpu().numpy()
+                                  for t in params.cca)))

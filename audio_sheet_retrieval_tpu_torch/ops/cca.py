@@ -1,8 +1,8 @@
-"""Canonical correlation analysis: the offline fit and the eval-mode layer.
+"""Canonical correlation analysis: the offline fit and the in-graph layer.
 
-The port of the JAX package's ``ops/cca.py`` without its training layer
-(``cca_layer_train`` waits for the training slice; ROADMAP Queue 1). The
-reference's eleven offline CCA variants
+The port of the JAX package's ``ops/cca.py``: the offline fit, the
+training-mode CCA layer (``cca_layer_train``, reference CCALayer) and its
+eval-mode projection. The reference's eleven offline CCA variants
 (reference:audio_sheet_retrieval/utils/cca.py) fall into three numerically
 equivalent families, each implemented once:
 
@@ -23,11 +23,17 @@ differently: two fits of the same data agree up to one sign per column.
 
 Sharded large-batch refit: the exact statistics of a large sample are a sum
 of per-shard moment sums (``cca_moments`` + ``cca_fit_from_moments``).
+
+The training layer's whitening is d x d algebra too: ``"polar"`` runs the
+Newton-Schulz iterations below as a Python loop of small products (30 a
+view for the inverse square roots, 40 for the polar factor), each its own
+launch on a card, and autograd differentiates through them; ``"eigh"``
+takes two ``torch.linalg.eigh`` and carries the sign caveat above.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -218,7 +224,7 @@ def cca_transform_v2(res: CCAResult, Y: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# In-graph CCA layer (reference CCALayer), eval mode
+# In-graph CCA layer (reference CCALayer)
 # ---------------------------------------------------------------------------
 
 
@@ -237,6 +243,104 @@ class CCAState(NamedTuple):
 
     def to(self, device) -> "CCAState":
         return CCAState(*(t.to(device) for t in self))
+
+    @staticmethod
+    def zeros(dim: int, *, device) -> "CCAState":
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        return CCAState(U=z(dim, dim), V=z(dim, dim), mean1=z(dim),
+                        mean2=z(dim), S12=z(dim, dim), S11=z(dim, dim),
+                        S22=z(dim, dim))
+
+
+def cca_layer_train(
+    H1: torch.Tensor,
+    H2: torch.Tensor,
+    state: CCAState,
+    r1: float = DEFAULT_R1,
+    r2: float = DEFAULT_R2,
+    rT: float = DEFAULT_RT,
+    alpha: float = 1.0,
+    whitening: str = "eigh",
+    grad_mode: str = "full",
+) -> Tuple[torch.Tensor, torch.Tensor, CCAState, torch.Tensor]:
+    """Training-mode CCA layer (reference lasagne cca.py:91-203; JAX
+    ``ops/cca.py:266-390``).
+
+    Computes batch statistics, blends them into the running state with
+    ``alpha`` (shipped models use alpha=1.0: pure batch statistics),
+    derives the projections and projects the mean-centred inputs.
+
+    ``whitening``: ``"eigh"``, the reference formulation (inverse square
+    roots, double eigh of T Tt / Tt T, the sign-matching fix of lasagne
+    cca.py:170-173); or ``"polar"``, Newton-Schulz inverse square roots and
+    the orthogonal polar factor W = polar(T), U = S11^-1/2 W, V = S22^-1/2.
+    Both give the same loss and retrieval metrics (PARITY.md); polar is pure
+    products, with no 1/(lambda_i - lambda_j) terms in its gradient, and its
+    monitored ``corr`` is diag(Wt T). ``grad_mode``: ``"full"``
+    differentiates through the whitening (the reference's dynamic);
+    ``"projection"`` treats U, V and the means as constants of the step.
+
+    Runs in the inputs' float type (float32 on the port's paths; the JAX
+    layer casts its bf16 inputs up, and the port has no bf16 encoder yet).
+    Returns (lv1, lv2, new_state, corr); ``new_state`` is detached (the
+    Theano original updated shared variables out of band).
+    """
+    if grad_mode not in ("full", "projection"):
+        raise ValueError(f"unknown grad_mode: {grad_mode}")
+    pin_full_f32()
+    m = float(H1.shape[0])
+    a = float(alpha)
+
+    mean1 = (1.0 - a) * state.mean1 + a * H1.mean(dim=0)
+    mean2 = (1.0 - a) * state.mean2 + a * H2.mean(dim=0)
+    H1bar = H1 - mean1
+    H2bar = H2 - mean2
+
+    denom = m - 1.0
+    eye = torch.eye(H1.shape[1], dtype=H1.dtype, device=H1.device)
+    S12 = H1bar.T @ H2bar / denom
+    S11 = H1bar.T @ H1bar / denom + r1 * eye
+    S22 = H2bar.T @ H2bar / denom + r2 * eye
+    S12 = (1.0 - a) * state.S12 + a * S12
+    S11 = (1.0 - a) * state.S11 + a * S11
+    S22 = (1.0 - a) * state.S22 + a * S22
+
+    if whitening == "polar":
+        S11si = inv_sqrt_spd_ns(S11)
+        S22si = inv_sqrt_spd_ns(S22)
+        T = S11si @ S12 @ S22si
+        W = polar_ns(T)
+        U = S11si @ W
+        V = S22si
+        # Wt T = (Tt T)^1/2: the singular values' trace (corr proxy)
+        corr = torch.sqrt(torch.clamp(
+            torch.abs(torch.diagonal(W.T @ T)) ** 2, 1e-7, 1.0))
+    elif whitening == "eigh":
+        S11si = inv_sqrt_spd(S11)
+        S22si = inv_sqrt_spd(S22)
+        T = S11si @ S12 @ S22si
+        E1, E = torch.linalg.eigh(T @ T.T + rT * eye)
+        _, F = torch.linalg.eigh(T.T @ T + rT * eye)
+        corr = torch.sqrt(torch.clamp(E1, 1e-7, 1.0))
+        U = S11si @ E
+        V = S22si @ F
+        # flip signs of projections to match (cca.py:170-173)
+        U = U * torch.sign(torch.diagonal(U.T @ S12 @ V))
+    else:
+        raise ValueError(f"unknown whitening: {whitening}")
+
+    if grad_mode == "projection":
+        lv1 = (H1 - mean1.detach()) @ U.detach()
+        lv2 = (H2 - mean2.detach()) @ V.detach()
+    else:
+        lv1 = H1bar @ U
+        lv2 = H2bar @ V
+
+    new_state = CCAState(*(t.detach() for t in (U, V, mean1, mean2, S12,
+                                                S11, S22)))
+    return lv1, lv2, new_state, corr
 
 
 def cca_layer_eval(H1: torch.Tensor, H2: torch.Tensor, state: CCAState):

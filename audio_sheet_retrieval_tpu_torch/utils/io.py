@@ -1,5 +1,5 @@
 """Reader and writer for the JAX package's native ``asr-tpu-v1`` checkpoint
-pickles.
+pickles, and the training curves file (``save_results`` / ``load_results``).
 
 The JAX package pickles ``{"format", "version", "tree", "meta"}`` where
 ``tree`` is a ``models.cca_model.ModelParams`` holding an ``ops.cca.CCAState``
@@ -116,3 +116,17 @@ def save_pytree(path: str, tree: Any, meta: dict | None = None) -> None:
                "tree": to_numpy_tree(tree), "meta": dict(meta or {})}
     with open(path, "wb") as fp:
         _PortPickler(fp, protocol=4).dump(payload)
+
+
+def save_results(path: str, results: dict) -> None:
+    """The per-epoch curves (``results_<tag>.pkl``, reference
+    train_dcca_pool.py:476-489): a plain pickle of lists of floats and
+    numpy arrays, as the JAX package writes it."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as fp:
+        pickle.dump(results, fp, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def load_results(path: str) -> dict:
+    with open(path, "rb") as fp:
+        return pickle.load(fp)

@@ -64,22 +64,42 @@ exits non-zero):
    after the refit on 2,000 distinct test pairs; unequal galleries and the
    packed 8-vector on the card against the CPU's answers.
 
+11. train: one train step of the full-width model (batch 100, f32, polar)
+   on the card against the same step on the CPU from one numpy tree and one
+   batch (loss, every gradient, the new BN and CCA state), then the eigh
+   whitening on loss and ``corr``; ``train.engine.fit`` for 3 epochs from a
+   seeded init with FULL augmentation over 60 train pieces of 200 onsets
+   (``k_samples`` 10,000: 100 steps a sub-epoch) and 5 valid pieces (1,000
+   pairs): train loss falls, validation MRR rises above epoch 1's and
+   chance, no NaN, the top-k kernel launched, the last evaluation's ranks
+   equal the full argsort's, and the dump read back by ``run_eval`` gives
+   the MRR ``fit`` reported; ``cli.run_train.main`` on the card (the dump
+   and curves written, no snapshot left); kill and resume (2 epochs, then
+   resumed to 4, over a pool that reshuffles every second epoch) bit for
+   bit as an uninterrupted 4-epoch run under deterministic cuDNN; the step
+   time (CUDA events), the eigh step, updates/s and seconds an epoch inside
+   ``fit`` (step loop, iterator wait, evaluation), launches a step, peak
+   memory, and kernel 1 at the evaluation's shape (Q = N = 1,000).
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
-zeroed before and read after each of phases 7-10; each of those phases must
+zeroed before and read after each of phases 7-10 and each entry point of
+phase 11 (``fit``, the CLI, the resume runs); each of those phases must
 launch the top-k kernel, and the ``kernels`` line reports the sum over
-phases 4-10, beside each kernel's times at the main path's shape (top-k:
+phases 4-11, beside each kernel's times at the main path's shape (top-k:
 Q = 100, N = 12,000, k = 25; gather: one 6040-px strip). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -1078,6 +1098,333 @@ def phase_eval_refine(torch, ctx):
     return launches
 
 
+# --- phase 11: training ------------------------------------------------------
+
+# one step, card against CPU: float32 sums over up to 800,000 terms a
+# channel, cuDNN against oneDNN, in other orders, and 70 Newton-Schulz
+# products that carry the rounding. Both are held to a float64 run of the
+# same step on the card: the loss and corr; every gradient element within
+# STEP_GRAD_TOL (card vs float64) and STEP_GRAD_CPU_TOL (card vs CPU) of
+# the largest gradient element of the step (measured on an H100 at 700 W:
+# the card 2.3e-3 from float64, the CPU 8.8e-3: the CPU is the farther);
+# the BN statistics and covariances within STEP_STATE_RTOL; the polar U
+# and V within STEP_UV_ATOL. eigh: loss and corr only (cuSOLVER and LAPACK
+# sign the eigenvectors differently).
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_TOL = 5e-3
+STEP_GRAD_CPU_TOL = 2e-2
+STEP_STATE_RTOL = 1e-4
+STEP_UV_ATOL = 1e-3
+TRAIN_PIECES = dict(n_train=60, n_valid=5, n_test=1, n_onsets=200)
+TRAIN_EPOCHS = 3
+RESUME_PIECES = dict(n_train=3, n_valid=1, n_test=1, n_onsets=100)
+FIT_MRR_ATOL = 1e-3   # the dump re-embedded by run_eval, in another order
+
+
+def count_launches(torch, fn) -> int:
+    """Kernels ``fn()`` launches on the card (torch.profiler; copies,
+    memsets, runtime calls and user ranges mirrored on the device left
+    out, as ``scripts/torch_profile_train.py`` counts them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.name.startswith(("Memcpy", "Memset", "cuda",
+                                           "cuLaunch"))
+               and "#" not in ev.name)
+
+
+def one_step(torch, cfg, tree, x1, x2, device, dtype):
+    """Loss, gradients and new running state of one train step from the
+    numpy ``tree`` on ``device`` in ``dtype`` (float64: the params and the
+    prepared inputs converted; the same arithmetic) -> host arrays."""
+    import torch.nn.functional as F
+
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+    from audio_sheet_retrieval_tpu_torch.ops import losses
+    from audio_sheet_retrieval_tpu_torch.train import engine
+
+    p = lasagne_import.train_params_from_numpy(tree, cfg, device=device)
+    t1 = torch.from_numpy(x1).to(device)
+    t2 = torch.from_numpy(x2).to(device)
+    if dtype == torch.float32:
+        loss, new, corr = engine.train_loss(p, t1, t2, cfg)
+    else:   # train_loss's arithmetic, with prepare_view1_device in float64
+        p = p.to(dtype)
+        lv1, lv2, new, corr = cca_model.forward_train(
+            p, F.avg_pool2d(t1.to(dtype) / 255.0, 2), t2.to(dtype), cfg)
+        loss = losses.contrastive_cos_loss(lv1, lv2, gamma=cfg.gamma) + \
+            cfg.l2 * sum((q * q).sum() for q in p.parameters())
+    loss.backward()
+    return dict(loss=loss.item(), corr=corr.detach().cpu().numpy(),
+                grads=[q.grad.cpu().numpy() for q in p.parameters()],
+                bn=[t.cpu().numpy() for st in new.bn1 + new.bn2 for t in st],
+                cca=[t.cpu().numpy() for t in new.cca])
+
+
+def step_errors(a, b) -> dict:
+    """Differences of two ``one_step`` results; gradients as the largest
+    element difference over the largest gradient element of ``b``."""
+    g_max = max(float(np.abs(g).max()) for g in b["grads"])
+
+    def worst(xs, ys, rel=False):
+        return max(float(np.abs(x - y).max()
+                         / (np.abs(y).max() if rel else 1.0))
+                   for x, y in zip(xs, ys))
+
+    return dict(loss=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                corr=float(np.abs(a["corr"] - b["corr"]).max()),
+                grad=worst(a["grads"], b["grads"]) / g_max, grad_max=g_max,
+                bn_rel=worst(a["bn"], b["bn"], rel=True),
+                cov_rel=worst(a["cca"][4:], b["cca"][4:], rel=True),
+                means=worst(a["cca"][2:4], b["cca"][2:4]),
+                uv=worst(a["cca"][:2], b["cca"][:2]))
+
+
+def step_card_vs_cpu(torch, cfg, tree, x1, x2, dev):
+    """One step on the card against the CPU (and both against float64 on
+    the card, polar only) -> the differences (raises past the
+    tolerances)."""
+    card = one_step(torch, cfg, tree, x1, x2, dev, torch.float32)
+    cpu = one_step(torch, cfg, tree, x1, x2, "cpu", torch.float32)
+    err = {"card_vs_cpu": step_errors(card, cpu)}
+    e = err["card_vs_cpu"]
+    assert e["loss"] <= STEP_LOSS_RTOL, err
+    assert e["corr"] <= 1e-4, err
+    if cfg.whitening == "polar":
+        f64 = one_step(torch, cfg, tree, x1, x2, dev, torch.float64)
+        err["card_vs_float64"] = step_errors(card, f64)
+        err["cpu_vs_float64"] = step_errors(cpu, f64)
+        assert e["grad"] <= STEP_GRAD_CPU_TOL, err
+        assert err["card_vs_float64"]["grad"] <= STEP_GRAD_TOL, err
+        assert e["bn_rel"] <= STEP_STATE_RTOL, err
+        assert e["cov_rel"] <= STEP_STATE_RTOL, err
+        assert e["means"] <= 1e-5, err
+        assert e["uv"] <= STEP_UV_ATOL, err
+    return err
+
+
+def valid_npz(tmp, pieces):
+    """The valid pieces as an ``npz:`` source and a split yaml whose test
+    split they are, for ``run_eval`` to read."""
+    import yaml
+
+    images, specs, o2cs = pieces
+    names = []
+    for i, (im, sp, oc) in enumerate(zip(images, specs, o2cs)):
+        names.append("valid_%02d" % i)
+        np.savez(os.path.join(tmp, names[-1] + ".npz"), image=im,
+                 **{"spec_%d" % k: s for k, s in enumerate(sp)},
+                 **{"o2c_%d" % k: o for k, o in enumerate(oc)})
+    split = os.path.join(tmp, "valid_split.yaml")
+    with open(split, "w") as fp:
+        yaml.safe_dump({"train": [], "valid": [], "test": names}, fp)
+    return split
+
+
+def phase_train(torch, ctx):
+    from audio_sheet_retrieval_tpu_torch import config
+    from audio_sheet_retrieval_tpu_torch.cli import run_eval, run_train
+    from audio_sheet_retrieval_tpu_torch.data import synthetic
+    from audio_sheet_retrieval_tpu_torch.data.iterators import (
+        MultiviewPoolIteratorUnsupervised as PoolIterator,
+    )
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+    from audio_sheet_retrieval_tpu_torch.ops import metrics
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
+        topk_gallery,
+        topk_gallery_plain,
+    )
+    from audio_sheet_retrieval_tpu_torch.train import engine
+    from audio_sheet_retrieval_tpu_torch.train import state as ts
+
+    dev, cfg = ctx["dev"], ctx["cfg"]
+    assert run_train.build_arg_parser().get_default("device") == "cuda"
+    augment = config.load_experiment_config("mutopia_full_aug").augment
+    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
+
+    def count(fn):
+        zero_launches()
+        out = fn()
+        for name, n in read_launches().items():
+            launches[name] += n
+        return out
+
+    # 1. one step, card against CPU, polar then eigh
+    tree = lasagne_import.train_params_to_numpy(cca_model.init_model(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    small = synthetic.load_synthetic_retrieval(
+        n_train=1, n_valid=1, n_test=1, n_onsets=120, augment=augment)
+    x1, x2 = small["train"][0:cfg.batch_size]
+    step_err = {w: step_card_vs_cpu(
+        torch, dataclasses.replace(cfg, whitening=w), tree, x1, x2, dev)
+        for w in ("polar", "eigh")}
+    emit("train", check="one step, card vs cpu", batch=cfg.batch_size,
+         errors=step_err)
+
+    # 2. a short full-width fit, its evaluation through kernel 1
+    t0 = time.perf_counter()
+    data = synthetic.load_synthetic_retrieval(**TRAIN_PIECES, augment=augment)
+    pools_s = time.perf_counter() - t0
+    n_va = TRAIN_PIECES["n_valid"] * TRAIN_PIECES["n_onsets"]   # 1,000
+    assert data["train"].shape[0] == (TRAIN_PIECES["n_train"]
+                                      * TRAIN_PIECES["n_onsets"])
+    assert data["valid"].shape[0] == n_va
+    fit_cfg = dataclasses.replace(cfg, max_epochs=TRAIN_EPOCHS)
+    recs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = os.path.join(tmp, "params.pkl")
+        torch.cuda.reset_peak_memory_stats()
+        best, best_map = count(lambda: engine.fit(
+            cca_model.init_model(torch.Generator().manual_seed(23), cfg,
+                                 device="cpu"),
+            data, fit_cfg, PoolIterator(cfg.batch_size,
+                                        k_samples=cfg.k_samples),
+            PoolIterator(cfg.batch_size, shuffle=False), device=dev,
+            out_path=tmp, dump_file=dump, verbose=False,
+            on_epoch=recs.append))
+        fit_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        fit_launches = dict(launches)
+        assert len(recs) == TRAIN_EPOCHS, recs
+        assert all(np.isfinite(r["train_loss"]) for r in recs), recs
+        assert recs[-1]["train_loss"] < recs[0]["train_loss"], recs
+        chance = float(np.mean(1.0 / np.arange(1, n_va + 1)))
+        assert recs[-1]["map_va"] > recs[0]["map_va"], recs
+        assert recs[-1]["map_va"] > 2 * chance, recs
+        assert fit_launches["topk_gallery"] >= 2 * TRAIN_EPOCHS, fit_launches
+        # the valid codes of the best params, as fit's evaluation embeds
+        # them: kernel 1's ranks equal the full argsort's
+        embed_pair = engine.make_eval_fns(cfg)[0]
+        folded = best.to(dev).fold()
+        V = [embed_pair(folded, torch.from_numpy(a).to(dev),
+                        torch.from_numpy(b).to(dev))
+             for a, b in (data["valid"][i:i + cfg.batch_size]
+                          for i in range(0, n_va, cfg.batch_size))]
+        lv1 = torch.cat([v[0] for v in V]).cpu().numpy()
+        lv2 = torch.cat([v[1] for v in V]).cpu().numpy()
+        _, med, _, hits, mrr = metrics.eval_retrieval(lv1, lv2, device=dev)
+        assert abs(mrr - best_map) <= FIT_MRR_ATOL, (mrr, best_map)
+        as_cli = {"map": mrr, "med_rank": med, "recall_at_k": {
+            "%d" % k: 100.0 * v / n_va for k, v in hits.items()}}
+        rank_check = check_eval_ranks(torch, dev, lv1, lv2, as_cli)
+        # the dump, read back by run_eval over the same valid pieces
+        split = valid_npz(tmp, synthetic.make_piece_list(
+            23 + 1, TRAIN_PIECES["n_valid"],
+            n_onsets=TRAIN_PIECES["n_onsets"]))
+        ev = count(lambda: run_eval.main(
+            ["--data", "npz:" + tmp, "--train_split", split, "--n_test",
+             str(n_va), "--param_file", dump, "--device", str(dev)]))
+        assert abs(ev["map"] - best_map) <= FIT_MRR_ATOL, (ev, best_map)
+    emit("train", check="fit", epochs=recs, best_map=best_map,
+         chance_mrr=chance, run_eval_map=ev["map"], pools_seconds=pools_s,
+         max_memory_allocated_mb=fit_peak_mb, eval_ranks=rank_check,
+         launches=fit_launches)
+
+    # 3. the CLI on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        count(lambda: run_train.main(["--data", "synthetic", "--max_epochs",
+                                      "2", "--exp_root", tmp]))
+        out = os.path.join(tmp, cfg.name)
+        files = sorted(os.listdir(out))
+        assert "params.pkl" in files and "results.pkl" in files, files
+        assert not any(f.startswith("fit_state") for f in files), files
+    emit("train", check="run_train cli", files=files)
+
+    # 4. kill and resume, bit for bit, under deterministic cuDNN; PyTorch's
+    # deterministic-algorithms check, in warning mode, names every op of
+    # the path that has no deterministic CUDA implementation
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    res_cfg = dataclasses.replace(cfg, k_samples=150, patience=50)
+
+    def resume_run(outdir, resume_file, n_epochs):
+        rdata = synthetic.load_synthetic_retrieval(**RESUME_PIECES,
+                                                   augment=augment)
+        recs = []
+        count(lambda: engine.fit(
+            cca_model.init_model(torch.Generator().manual_seed(5), cfg,
+                                 device="cpu"),
+            rdata, res_cfg, PoolIterator(cfg.batch_size, k_samples=150),
+            PoolIterator(cfg.batch_size, shuffle=False), device=dev,
+            out_path=outdir, num_epochs=n_epochs, verbose=False,
+            on_epoch=recs.append, resume_file=resume_file))
+        return [(r["train_loss"], r["valid_loss"], r["map_va"], r["map_tr"])
+                for r in recs]
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            snap = os.path.join(tmp, "fit_state.pkl")
+            full = resume_run(os.path.join(tmp, "full"), None, 4)
+            first = resume_run(os.path.join(tmp, "p1"), snap, 2)
+            second = resume_run(os.path.join(tmp, "p2"), snap, 4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    nondeterministic = sorted({str(w.message)[:160] for w in caught
+                               if "determinis" in str(w.message)})
+    assert first == full[:2] and second == full[2:], (full, first, second)
+    emit("train", check="kill and resume", epochs=full,
+         resumed_bit_identical=True, cudnn_deterministic=True,
+         ops_without_deterministic_cuda_path=nondeterministic)
+
+    # 5. numbers: the step and the eigh step (CUDA events), launches a
+    # step, peak memory, kernel 1 at the evaluation's shape
+    numbers = {}
+    x1d = torch.from_numpy(x1).to(dev)
+    x2d = torch.from_numpy(x2).to(dev)
+    for w in ("polar", "eigh"):
+        c = dataclasses.replace(cfg, whitening=w)
+        state = ts.init_train_state(lasagne_import.train_params_from_numpy(
+            tree, c, device=dev), c)
+        step = engine.make_train_step(c)
+        torch.cuda.reset_peak_memory_stats()
+        numbers[w] = dict(
+            step_ms=cuda_ms(lambda: step(state, x1d, x2d), iters=20,
+                            warmup=5),
+            launches_per_step=count_launches(
+                torch, lambda: step(state, x1d, x2d)),
+            max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+            / 2**20)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(1000, 32, generator=gen, device=dev)
+    g = torch.randn(1000, 32, generator=gen, device=dev)
+    q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    g = g / torch.linalg.vector_norm(g, dim=1, keepdim=True)
+    err = check_topk(torch, q, g, 25)
+    b_ms, b_by = topk_bound(1000, 1000, 32, 25)
+    k1 = dict(ms=cuda_ms(lambda: topk_gallery(q, g, 25)),
+              plain_ms=cuda_ms(lambda: topk_gallery_plain(q, g, 25)),
+              bound_ms=b_ms, bound_by=b_by,
+              library_ms=cuda_ms(lambda: torch.topk(q @ g.T, 25, dim=1)),
+              max_abs_err=err)
+    emit("timing", kernel="topk_gallery", case="training evaluation",
+         Q=1000, N=1000, d=32, k=25, **k1)
+    per_epoch = [dict(number=r["number"], updates_per_s=r["updates_per_s"],
+                      step_loop_s=r["loop_seconds"],
+                      iterator_wait_s=r["wait_seconds"],
+                      iterator_wait_share=r["wait_seconds"]
+                      / r["loop_seconds"], eval_s=r["eval_seconds"])
+                 for r in recs]
+    emit("train", check="numbers", step=numbers, fit_epochs=per_epoch,
+         fit_max_memory_allocated_mb=fit_peak_mb, launches=launches)
+    assert launches["topk_gallery"] > 0, "training ran no top-k kernel"
+    assert not torch.backends.cudnn.allow_tf32
+    return launches
+
+
 def main() -> int:
     torch = require_cuda()
     smi = phase_device(torch)
@@ -1085,7 +1432,7 @@ def main() -> int:
     kernel_stats = phase_kernels(torch)
     ctx, launches = phase_serving(torch)
     for phase in (phase_s2a, phase_streaming, phase_audio,
-                  phase_eval_refine):
+                  phase_eval_refine, phase_train):
         for name, n in phase(torch, ctx).items():
             launches[name] += n
     rows = []

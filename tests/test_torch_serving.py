@@ -312,6 +312,16 @@ with tempfile.TemporaryDirectory() as tmp:
     run_eval.main(["--data", "synthetic", "--n_test", "20", "--device",
                    "cpu", "--param_file", refined, "--V2_to_V1", "--max_dim",
                    "16"])
+import dataclasses
+from audio_sheet_retrieval_tpu_torch.cli import run_train
+from audio_sheet_retrieval_tpu_torch.models import configs as mconfigs
+mconfigs.MODEL_REGISTRY["tiny_test"] = dataclasses.replace(
+    get_model_config("mutopia_ccal_cont_rsz", num_filters=4, dim_latent=8,
+                     batch_size=8, k_samples=16), name="tiny_test")
+with tempfile.TemporaryDirectory() as tmp:
+    run_train.main(["--model", "tiny_test", "--data", "synthetic",
+                    "--device", "cpu", "--exp_root", tmp, "--max_epochs",
+                    "1"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "audio_sheet_retrieval_tpu"))
 print("JAX_MODULES", loaded)
@@ -320,7 +330,8 @@ print("JAX_MODULES", loaded)
 
 def test_port_never_imports_jax():
     """Every module of the port and chip_smoke.py import, and the serving
-    paths and the evaluation and CCA-refit CLIs run, with the JAX package
+    paths, the evaluation and CCA-refit CLIs and training (``run_train``:
+    ``fit``, its train step and its evaluation) run, with the JAX package
     refused by an import hook; afterwards no module of jax or of the JAX
     package is loaded."""
     res = subprocess.run([sys.executable, "-c", NO_JAX_SCRIPT], cwd=REPO,
