@@ -10,10 +10,12 @@ in-flight snapshot fit_state_<tag>.pkl. The dump is the JAX package's
 ``asr-tpu-v1`` format (unfolded parameters), which ``run_eval`` of either
 package reads.
 
-Training runs over the host iterator (``--host_data``); the device-resident
-pool is not ported yet, so without the flag the CLI says so and runs the
-host iterator all the same. Training is float32 only: ``--compute_dtype
-bfloat16`` raises ``NotImplementedError``.
+Without ``--host_data`` the pools are lifted onto ``--device`` as the JAX
+package's CLI lifts them (``data.device_pool.from_host_pool``: the train
+pool shuffled from ``--seed``, the valid pool in order from ``--seed`` + 1)
+and batches are assembled there; ``--host_data`` keeps the reference's
+per-batch host preparation in a producer thread. Training is float32
+only: ``--compute_dtype bfloat16`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ import argparse
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from audio_sheet_retrieval_tpu_torch import config as cfg_mod
+from audio_sheet_retrieval_tpu_torch.data import device_pool
 from audio_sheet_retrieval_tpu_torch.data.iterators import (
     MultiviewPoolIteratorUnsupervised,
 )
@@ -36,9 +40,6 @@ from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
 )
 from audio_sheet_retrieval_tpu_torch.train import engine
 from audio_sheet_retrieval_tpu_torch.utils.logging import print_architecture
-
-DEVICE_POOL_TODO = ("the device-resident data path is not ported yet; "
-                    "training runs over the host iterator (--host_data)")
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -73,8 +74,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="CCA whitening (polar: Newton-Schulz, loss-"
                              "equivalent; eigh: reference formulation)")
     parser.add_argument("--host_data", action="store_true",
-                        help="per-batch host preparation like the reference "
-                             "(the only data path of this package so far)")
+                        help="disable the device-resident data path (keep "
+                             "per-batch host preparation like the reference)")
     parser.add_argument("--max_train_pieces", type=int, default=None,
                         help="subset the training pieces (dataset-size "
                              "sweeps)")
@@ -100,8 +101,6 @@ def main(argv=None):
     if overrides:
         model_cfg = dataclasses.replace(model_cfg, **overrides)
     cca_model.check_numerics(model_cfg)
-    if not args.host_data:
-        print("Note:", DEVICE_POOL_TODO)
 
     print("\nLoading data...")
     data = select_data(args.data, args.train_split, args.config, args.seed,
@@ -133,10 +132,27 @@ def main(argv=None):
             load_checkpoint_tree(dump_file, model_cfg), model_cfg,
             device="cpu")
 
-    train_batch_iter = MultiviewPoolIteratorUnsupervised(
-        batch_size=model_cfg.batch_size, k_samples=model_cfg.k_samples)
-    valid_batch_iter = MultiviewPoolIteratorUnsupervised(
-        batch_size=model_cfg.batch_size, shuffle=False)
+    if args.host_data:
+        train_batch_iter = MultiviewPoolIteratorUnsupervised(
+            batch_size=model_cfg.batch_size, k_samples=model_cfg.k_samples)
+        valid_batch_iter = MultiviewPoolIteratorUnsupervised(
+            batch_size=model_cfg.batch_size, shuffle=False)
+    else:
+        # device-resident data: pieces on the card, batches gathered there
+        data = dict(
+            data,
+            train=device_pool.from_host_pool(
+                data["train"], rng=np.random.default_rng(args.seed),
+                device=args.device),
+            valid=device_pool.from_host_pool(
+                data["valid"], shuffle=False,
+                rng=np.random.default_rng(args.seed + 1),
+                device=args.device),
+        )
+        train_batch_iter = device_pool.DeviceBatchIterator(
+            batch_size=model_cfg.batch_size, k_samples=model_cfg.k_samples)
+        valid_batch_iter = device_pool.DeviceBatchIterator(
+            batch_size=model_cfg.batch_size, shuffle=False, train=False)
 
     if not args.resume and os.path.exists(state_file):
         os.remove(state_file)  # fresh run: a stale snapshot must not resume

@@ -143,33 +143,42 @@ def unpack_retrieval_metrics(vec):
     return float(vec[0]), float(vec[1]), float(vec[2]), hit_rates, float(vec[3])
 
 
-def eval_retrieval(lv1_cca, lv2_cca, *, device):
-    """Reference-parity evaluation.
-
-    Returns (mean_rank, median_rank, mean_diag_dist, hit_rates, map) exactly
-    like reference train_dcca_pool.py:28-82 — hit_rates is a dict over
-    k in {1, 5, 10, 25}; 'map' is mean reciprocal rank.
-
-    The ranks are ``retrieval_ranks``'s, computed without the [n1, n2]
-    matrix: the top-k path gives every rank up to 25 (all the hit rates
-    need), and only the queries whose match lies beyond it sort their own
-    row of distances.
-    """
+def eval_ranks(lv1, lv2, *, device):
+    """-> (ranks [n1] int64, mean diagonal distance) as tensors on the
+    codes' device, nothing downloaded: ``retrieval_ranks``'s ranks without
+    the [n1, n2] matrix. The top-k path gives every rank up to 25 (all the
+    hit rates need), and only the queries whose match lies beyond it sort
+    their own row of distances."""
     pin_full_f32()
-    u1 = _unit_rows(_codes(lv1_cca, device)).contiguous()
-    u2 = _unit_rows(_codes(lv2_cca, device)).contiguous()
+    u1 = _unit_rows(_codes(lv1, device)).contiguous()
+    u2 = _unit_rows(_codes(lv2, device)).contiguous()
     k, h = _fold(u1.shape[0], u2.shape[0])
     ranks, found = _ranks_topk(u1, u2, max(HIT_RATE_KS))
     beyond = torch.nonzero(~found)[:, 0]
     if beyond.numel():
         ranks[beyond] = _argsort_ranks(1.0 - u1[beyond] @ u2.T, beyond // h, k)
     m = min(u1.shape[0], u2.shape[0])
-    mean_diag = float((1.0 - (u1[:m] * u2[:m]).sum(dim=1)).mean())
-    ranks = ranks.cpu().numpy()
+    return ranks, (1.0 - (u1[:m] * u2[:m]).sum(dim=1)).mean()
+
+
+def summarise_ranks(ranks: np.ndarray, mean_diag: float):
+    """Host ranks -> the ``eval_retrieval`` tuple."""
     hit_rates: Dict[int, int] = {
         key: int(np.sum(ranks <= key)) for key in HIT_RATE_KS
     }
     mean_rank = float(np.mean(ranks))
     median_rank = float(np.median(ranks))
     mrr = float(np.mean(1.0 / ranks))
-    return mean_rank, median_rank, mean_diag, hit_rates, mrr
+    return mean_rank, median_rank, float(mean_diag), hit_rates, mrr
+
+
+def eval_retrieval(lv1_cca, lv2_cca, *, device):
+    """Reference-parity evaluation.
+
+    Returns (mean_rank, median_rank, mean_diag_dist, hit_rates, map) exactly
+    like reference train_dcca_pool.py:28-82 — hit_rates is a dict over
+    k in {1, 5, 10, 25}; 'map' is mean reciprocal rank. The ranks are
+    ``eval_ranks``'s: up to 25 from the gallery top-k kernel on a card.
+    """
+    ranks, mean_diag = eval_ranks(lv1_cca, lv2_cca, device=device)
+    return summarise_ranks(ranks.cpu().numpy(), float(mean_diag))

@@ -1,14 +1,19 @@
 """Training engine: the train step and the reference's fit / refinement loop.
 
-The port of the JAX package's ``train/engine.py`` over the host iterator.
-Control-flow parity with reference:utils/train_dcca_pool.py:
-  * per-epoch training over ``k_samples`` sub-epochs through a threaded
-    prefetch generator (:193-232): the producer thread builds numpy
-    batches, the loop uploads them to ``device``;
+The port of the JAX package's ``train/engine.py``. Control-flow parity
+with reference:utils/train_dcca_pool.py:
+  * per-epoch training over ``k_samples`` sub-epochs (:193-232), over one
+    of two data paths, chosen by the iterators (duck-typed on
+    ``epoch_entity_indices``, as in the JAX package): the host iterator,
+    whose producer thread builds numpy batches that the loop uploads to
+    ``device`` (a threaded prefetch generator, :114-141), or the device
+    pool (``data.device_pool``), whose sub-epoch is one call of its epoch
+    runner: batches gathered on the card, no producer thread;
   * per-epoch embedding of <= 1000 train and valid samples, the optional
     offline CCA refit (``fit_cca``), retrieval evaluation (:234-299), whose
     ranks up to 25 come from the gallery top-k kernel on a card
-    (``ops.metrics.eval_retrieval``);
+    (``ops.metrics.eval_ranks``; over the device pool the whole evaluation
+    is ``make_fused_eval``'s, with one download);
   * early stopping on ``map_va >= prev_map_va`` with a best-model snapshot
     and a params dump on improvement (:391-401);
   * the NaN-loss abort (:410-411);
@@ -23,8 +28,7 @@ then the new BN and CCA running state written into the params (in place:
 the params, the optimizer and the step count of a ``TrainState`` are
 updated where they are). Evaluation embeds through the folded eval model
 (``TrainParams.fold``); the best snapshot and the dump are the unfolded
-train params. The JAX package's device-resident pools and mesh arms are not
-ported here.
+train params. The JAX package's mesh arms are not ported here.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audio_sheet_retrieval_tpu_torch.data import device_pool
 from audio_sheet_retrieval_tpu_torch.data.iterators import (
     threaded_generator_from_iterator,
 )
@@ -50,7 +55,11 @@ from audio_sheet_retrieval_tpu_torch.models.cca_model import (
 from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.ops import cca as cca_ops
 from audio_sheet_retrieval_tpu_torch.ops import losses
-from audio_sheet_retrieval_tpu_torch.ops.metrics import eval_retrieval
+from audio_sheet_retrieval_tpu_torch.ops.metrics import (
+    eval_ranks,
+    eval_retrieval,
+    summarise_ranks,
+)
 from audio_sheet_retrieval_tpu_torch.train import state as ts
 from audio_sheet_retrieval_tpu_torch.utils import io as uio
 from audio_sheet_retrieval_tpu_torch.utils.logging import BColors
@@ -156,14 +165,43 @@ def make_eval_fns(cfg: ModelConfig):
     return embed_pair, valid_loss, init_cca_step
 
 
+def make_fused_eval(cfg: ModelConfig):
+    """-> ``fused_eval(lv1_tr, lv2_tr, lv1_va, lv2_va)`` -> the
+    ``eval_retrieval`` tuples of the train and the valid codes: with
+    ``cfg.fit_cca``, CCA refitted on the train codes (``cca_fit``, svd) and
+    both splits projected, on the codes' device; each split ranked through
+    the gallery top-k kernel on a card (``ops.metrics.eval_ranks``); one
+    download for both. The JAX package's counterpart (its :146-168) ranks
+    by a full argsort inside one program."""
+
+    def fused_eval(lv1_tr, lv2_tr, lv1_va, lv2_va):
+        if cfg.fit_cca:
+            res = cca_ops.cca_fit(lv1_tr, lv2_tr, method="svd")
+            lv1_tr, lv1_va = (cca_ops.cca_transform_v1(res, v)
+                              for v in (lv1_tr, lv1_va))
+            lv2_tr, lv2_va = (cca_ops.cca_transform_v2(res, v)
+                              for v in (lv2_tr, lv2_va))
+        splits = [eval_ranks(a, b, device=None)
+                  for a, b in ((lv1_tr, lv2_tr), (lv1_va, lv2_va))]
+        host = torch.cat([torch.cat([r.double(), d.double()[None]])
+                          for r, d in splits]).cpu().numpy()
+        n = lv1_tr.shape[0]
+        return (summarise_ranks(host[:n], host[n]),
+                summarise_ranks(host[n + 1:-1], host[-1]))
+
+    return fused_eval
+
+
 # --- kill-and-resume snapshot -------------------------------------------------
 #
 # fit(resume_file=...) writes the whole fit state atomically at every epoch
 # end: params and optimizer state, the best snapshot, the early-stop and
 # refinement bookkeeping, the curves, and the data order: each pool's rng
-# state AND its shuffled ``train_entities`` (which ``reset_batch_generator``
-# permutes in place), each iterator's ``epoch_counter``. A killed run
-# resumed from it continues epoch for epoch as the uninterrupted run would.
+# state AND its shuffled order (a host pool's ``train_entities``, which
+# ``reset_batch_generator`` permutes in place; a device pool's ``_order``
+# and the state of its device generator), each iterator's
+# ``epoch_counter``. A killed run resumed from it continues epoch for epoch
+# as the uninterrupted run would.
 
 FIT_STATE_VERSION = 1
 
@@ -199,7 +237,8 @@ def _atomic_pickle(path: str, obj) -> None:
 
 def _data_state(obj) -> dict:
     """The data order of a pool or an iterator: numpy Generator state, the
-    shuffled entity order, the sub-epoch counter."""
+    shuffled entity order, a device pool's generator state, the sub-epoch
+    counter."""
     d = {}
     if obj is None:
         return d
@@ -209,6 +248,12 @@ def _data_state(obj) -> dict:
     entities = getattr(obj, "train_entities", None)
     if entities is not None:
         d["train_entities"] = np.array(entities)
+    order = getattr(obj, "_order", None)
+    if order is not None:
+        d["order"] = np.array(order)
+    generator = getattr(obj, "generator", None)
+    if isinstance(generator, torch.Generator):
+        d["generator"] = generator.get_state().numpy().copy()
     if hasattr(obj, "epoch_counter"):
         d["epoch_counter"] = int(obj.epoch_counter)
     return d
@@ -221,6 +266,10 @@ def _restore_data_state(obj, d: Optional[dict]) -> None:
         obj.rng.bit_generator.state = d["rng"]
     if "train_entities" in d:
         obj.train_entities = np.array(d["train_entities"])
+    if "order" in d:
+        obj._order = np.array(d["order"])
+    if "generator" in d:
+        obj.generator.set_state(torch.from_numpy(d["generator"].copy()))
     if "epoch_counter" in d:
         obj.epoch_counter = int(d["epoch_counter"])
 
@@ -254,15 +303,18 @@ def fit(
     copy of ``params`` is trained; the caller's module is not changed) ->
     (best ``TrainParams``, best validation MRR).
 
-    ``data`` holds host pools (``data["train"]``, ``data["valid"]``); the
-    iterators are ``data.iterators.MultiviewPoolIteratorUnsupervised``.
+    ``data`` holds the pools (``data["train"]``, ``data["valid"]``): host
+    pools with ``data.iterators.MultiviewPoolIteratorUnsupervised``, or
+    device pools (``data.device_pool.DevicePool`` on ``device``) with
+    ``data.device_pool.DeviceBatchIterator``, both of one kind.
     ``on_epoch`` gets the JAX package's per-epoch record (number,
-    train_loss, valid_loss, map_tr, map_va, med_rank_va) and the epoch's
-    timing: ``n_batches``, ``updates_per_s``, ``loop_seconds`` (the step
-    loop, to a synchronise), ``wait_seconds`` (of it, waiting on the
-    iterator) and ``eval_seconds``. With ``resume_file`` set, the whole fit
-    state is written there at every epoch end, and an existing file resumes
-    the run where it stopped.
+    train_loss, valid_loss, map_tr, map_va, med_rank_va), the data path
+    (``data``: "device pool" or "host iterator") and the epoch's timing:
+    ``n_batches``, ``updates_per_s``, ``loop_seconds`` (the step loop, to a
+    synchronise), ``wait_seconds`` (of it, waiting on the host iterator; 0
+    over the device pool) and ``eval_seconds``. With ``resume_file`` set,
+    the whole fit state is written there at every epoch end, and an
+    existing file resumes the run where it stopped.
     """
     device = torch.device(device)
     os.makedirs(out_path, exist_ok=True)
@@ -271,6 +323,11 @@ def fit(
     num_epochs = num_epochs or cfg.max_epochs
 
     cca_model.check_numerics(cfg)
+    device_data = hasattr(train_batch_iter, "epoch_entity_indices")
+    if hasattr(valid_batch_iter, "epoch_entity_indices") != device_data:
+        raise ValueError("the train and the valid data must both be device "
+                         "pools or both host pools")
+    data_path = "device pool" if device_data else "host iterator"
     state = ts.init_train_state(copy.deepcopy(params).to(device), cfg)
     train_step = make_train_step(cfg)
     embed_pair, valid_loss_fn, init_cca_step = make_eval_fns(cfg)
@@ -283,6 +340,10 @@ def fit(
             print(col.print_colored(msg, color) if color else msg)
 
     say("Running Test Case: " + exp_name, BColors.UNDERLINE)
+    say("Training data: " + (
+        "device pool, batches assembled on %s" % data["train"].device
+        if device_data else
+        "host iterator, batches built in a producer thread"))
 
     snap = None
     if resume_file is not None and os.path.exists(resume_file):
@@ -299,9 +360,13 @@ def fit(
     # CCA burn-in epochs (pretrain, reference :170-182); already done in
     # the interrupted run when resuming
     for _ in range(0 if snap is not None else cfg.pretrain_epochs):
-        for x1, x2 in threaded_generator_from_iterator(
-                train_batch_iter(data["train"])):
-            init_cca_step(state, put(x1), put(x2))
+        if device_data:     # batches already on the card: no thread
+            for x1, x2 in train_batch_iter(data["train"]):
+                init_cca_step(state, x1, x2)
+        else:
+            for x1, x2 in threaded_generator_from_iterator(
+                    train_batch_iter(data["train"])):
+                init_cca_step(state, put(x1), put(x2))
 
     patience = cfg.patience
     refinement_steps = cfg.refinement_steps
@@ -316,6 +381,11 @@ def fit(
         "rank_val", "map_tr", "map_val", "evals_tr", "lr")}
     n_valid_cca = int(min(1000, data["valid"].shape[0]))
     epoch_idx = 0
+    if device_data:
+        epoch_runner = device_pool.make_epoch_runner(cfg, data["train"])
+        embed_tr = device_pool.make_embed_runner(cfg, data["train"])
+        embed_va = device_pool.make_embed_runner(cfg, data["valid"])
+        fused_eval = make_fused_eval(cfg)
     data_objs = (("train_pool", data.get("train")),
                  ("valid_pool", data.get("valid")),
                  ("train_iter", train_batch_iter),
@@ -355,6 +425,77 @@ def fit(
                            for name, obj in data_objs},
         })
 
+    def evaluate_on_device(model: ModelParams):
+        """The evaluation over the device pools (the JAX package's fused
+        arm, its :477-506): the train subset is the first nb * bs entities
+        of the pool's current order, read without an iterator, so nothing
+        reshuffles; the valid codes are the valid iterator's next
+        sub-epoch, cut to max(n_valid_cca, bs) rows."""
+        bs = train_batch_iter.batch_size
+        nb = int(np.ceil(n_valid_cca / bs))
+        pool_tr = data["train"]
+        idx = np.arange(nb * bs) % pool_tr.shape[0]
+        lv1_tr, lv2_tr, _ = embed_tr(model, pool_tr._order[idx.reshape(nb,
+                                                                       bs)])
+        va_it = valid_batch_iter(data["valid"])
+        lv1_va, lv2_va, va_losses = embed_va(model,
+                                             va_it.epoch_entity_indices())
+        n_keep = max(n_valid_cca, va_it.batch_size)
+        metrics_tr, metrics_va = fused_eval(lv1_tr, lv2_tr, lv1_va[:n_keep],
+                                            lv2_va[:n_keep])
+        return (metrics_tr, metrics_va,
+                float(va_losses.double().mean()), nb * bs)
+
+    def evaluate_on_host(model: ModelParams):
+        """The evaluation over the host pools -> (train metrics, valid
+        metrics, valid loss, train codes ranked)."""
+        # embed the train subset from a fresh iterator copy
+        # (:234-246), drained fully as the reference does: it
+        # reshuffles the shared pool at its end, and breaking out would
+        # leave the producer thread blocked on its queue
+        it_copy = copy.copy(train_batch_iter)
+        it_copy.epoch_counter = 0
+        V1_tr, V2_tr = [], []
+        n_collected = 0
+        for x1, x2 in threaded_generator_from_iterator(
+                it_copy(data["train"])):
+            if n_collected >= n_valid_cca:
+                continue
+            lv1, lv2 = embed_pair(model, put(x1), put(x2))
+            V1_tr.append(lv1)
+            V2_tr.append(lv2)
+            n_collected += lv1.shape[0]
+        V1_tr, V2_tr = torch.cat(V1_tr), torch.cat(V2_tr)
+        if cfg.fit_cca:
+            res = cca_ops.cca_fit(V1_tr, V2_tr, method="svd")
+            lv1_tr = cca_ops.cca_transform_v1(res, V1_tr)
+            lv2_tr = cca_ops.cca_transform_v2(res, V2_tr)
+        else:
+            lv1_tr, lv2_tr = V1_tr, V2_tr
+        metrics_tr = eval_retrieval(lv1_tr, lv2_tr, device=device)
+
+        # ---- validation (:272-299) --------------------------------
+        V1_va, V2_va, va_losses = [], [], []
+        n_collected = 0
+        for x1, x2 in threaded_generator_from_iterator(
+                valid_batch_iter(data["valid"])):
+            vloss, lv1, lv2 = valid_loss_fn(model, put(x1), put(x2))
+            va_losses.append(vloss)
+            if n_collected < n_valid_cca:
+                V1_va.append(lv1)
+                V2_va.append(lv2)
+                n_collected += lv1.shape[0]
+        va_loss = float(np.mean([float(v) for v in
+                                 torch.stack(va_losses).cpu()]))
+        V1_va, V2_va = torch.cat(V1_va), torch.cat(V2_va)
+        if cfg.fit_cca:
+            lv1_va = cca_ops.cca_transform_v1(res, V1_va)
+            lv2_va = cca_ops.cca_transform_v2(res, V2_va)
+        else:
+            lv1_va, lv2_va = V1_va, V2_va
+        return (metrics_tr, eval_retrieval(lv1_va, lv2_va, device=device),
+                va_loss, len(lv1_tr))
+
     now = time.time()
     try:
         while epoch_idx < num_epochs:
@@ -363,18 +504,25 @@ def fit(
             # ---- train one epoch ---------------------------------------
             t0 = time.perf_counter()
             wait = 0.0
-            batch_losses, batch_corrs = [], []
-            batches = threaded_generator_from_iterator(
-                train_batch_iter(data["train"]))
-            while True:
-                tw = time.perf_counter()
-                batch = next(batches, None)
-                wait += time.perf_counter() - tw
-                if batch is None:
-                    break
-                m = train_step(state, put(batch[0]), put(batch[1]))
-                batch_losses.append(m["loss"])
-                batch_corrs.append(m["corr"])
+            if device_data:
+                # the sub-epoch in one call, on the card (no producer)
+                losses_d, corrs_d = epoch_runner(
+                    state,
+                    train_batch_iter(data["train"]).epoch_entity_indices())
+                batch_losses, batch_corrs = list(losses_d), list(corrs_d)
+            else:
+                batch_losses, batch_corrs = [], []
+                batches = threaded_generator_from_iterator(
+                    train_batch_iter(data["train"]))
+                while True:
+                    tw = time.perf_counter()
+                    batch = next(batches, None)
+                    wait += time.perf_counter() - tw
+                    if batch is None:
+                        break
+                    m = train_step(state, put(batch[0]), put(batch[1]))
+                    batch_losses.append(m["loss"])
+                    batch_corrs.append(m["corr"])
             n_batches = len(batch_losses)
             # one synchronising download at epoch end, not per batch
             batch_losses = ([float(v) for v in torch.stack(batch_losses)
@@ -386,54 +534,11 @@ def fit(
             # ---- evaluation through the folded model ------------------
             t_eval = time.perf_counter()
             model = state.params.fold()
-            # embed the train subset from a fresh iterator copy
-            # (:234-246), drained fully as the reference does: it
-            # reshuffles the shared pool at its end, and breaking out would
-            # leave the producer thread blocked on its queue
-            it_copy = copy.copy(train_batch_iter)
-            it_copy.epoch_counter = 0
-            V1_tr, V2_tr = [], []
-            n_collected = 0
-            for x1, x2 in threaded_generator_from_iterator(
-                    it_copy(data["train"])):
-                if n_collected >= n_valid_cca:
-                    continue
-                lv1, lv2 = embed_pair(model, put(x1), put(x2))
-                V1_tr.append(lv1)
-                V2_tr.append(lv2)
-                n_collected += lv1.shape[0]
-            V1_tr, V2_tr = torch.cat(V1_tr), torch.cat(V2_tr)
-            if cfg.fit_cca:
-                res = cca_ops.cca_fit(V1_tr, V2_tr, method="svd")
-                lv1_tr = cca_ops.cca_transform_v1(res, V1_tr)
-                lv2_tr = cca_ops.cca_transform_v2(res, V2_tr)
-            else:
-                lv1_tr, lv2_tr = V1_tr, V2_tr
-            _, med_rank_tr, dist_tr, hit_tr, map_tr = eval_retrieval(
-                lv1_tr, lv2_tr, device=device)
-            mean_rank_tr = 1.0 - float(hit_tr[10]) / len(lv1_tr)
-
-            # ---- validation (:272-299) --------------------------------
-            V1_va, V2_va, va_losses = [], [], []
-            n_collected = 0
-            for x1, x2 in threaded_generator_from_iterator(
-                    valid_batch_iter(data["valid"])):
-                vloss, lv1, lv2 = valid_loss_fn(model, put(x1), put(x2))
-                va_losses.append(vloss)
-                if n_collected < n_valid_cca:
-                    V1_va.append(lv1)
-                    V2_va.append(lv2)
-                    n_collected += lv1.shape[0]
-            va_loss = float(np.mean([float(v) for v in
-                                     torch.stack(va_losses).cpu()]))
-            V1_va, V2_va = torch.cat(V1_va), torch.cat(V2_va)
-            if cfg.fit_cca:
-                lv1_va = cca_ops.cca_transform_v1(res, V1_va)
-                lv2_va = cca_ops.cca_transform_v2(res, V2_va)
-            else:
-                lv1_va, lv2_va = V1_va, V2_va
-            _, med_rank_va, dist_va, hit_va, map_va = eval_retrieval(
-                lv1_va, lv2_va, device=device)
+            (_, med_rank_tr, dist_tr, hit_tr, map_tr), \
+                (_, med_rank_va, dist_va, hit_va, map_va), va_loss, n_tr = \
+                (evaluate_on_device if device_data
+                 else evaluate_on_host)(model)
+            mean_rank_tr = 1.0 - float(hit_tr[10]) / n_tr
             mean_rank_va = 1.0 - float(hit_va[10]) / 1000.0
             eval_s = time.perf_counter() - t_eval
 
@@ -482,7 +587,7 @@ def fit(
                 on_epoch(dict(number=epoch_idx, train_loss=tr_loss,
                               valid_loss=va_loss, map_tr=map_tr,
                               map_va=map_va, med_rank_va=med_rank_va,
-                              n_batches=n_batches, updates_per_s=ups,
+                              data=data_path, n_batches=n_batches, updates_per_s=ups,
                               loop_seconds=loop_s, wait_seconds=wait,
                               eval_seconds=eval_s))
 

@@ -67,27 +67,41 @@ exits non-zero):
 11. train: one train step of the full-width model (batch 100, f32, polar)
    on the card against the same step on the CPU from one numpy tree and one
    batch (loss, every gradient, the new BN and CCA state), then the eigh
-   whitening on loss and ``corr``; ``train.engine.fit`` for 3 epochs from a
-   seeded init with FULL augmentation over 60 train pieces of 200 onsets
-   (``k_samples`` 10,000: 100 steps a sub-epoch) and 5 valid pieces (1,000
-   pairs): train loss falls, validation MRR rises above epoch 1's and
-   chance, no NaN, the top-k kernel launched, the last evaluation's ranks
-   equal the full argsort's, and the dump read back by ``run_eval`` gives
-   the MRR ``fit`` reported; ``cli.run_train.main`` on the card (the dump
-   and curves written, no snapshot left); kill and resume (2 epochs, then
-   resumed to 4, over a pool that reshuffles every second epoch) bit for
-   bit as an uninterrupted 4-epoch run under deterministic cuDNN; the step
-   time (CUDA events), the eigh step, updates/s and seconds an epoch inside
-   ``fit`` (step loop, iterator wait, evaluation), launches a step, peak
-   memory, and kernel 1 at the evaluation's shape (Q = N = 1,000).
+   whitening on loss and ``corr``; ``train.engine.fit`` over the host
+   iterator for 3 epochs from a seeded init with FULL augmentation over 60
+   train pieces of 200 onsets (``k_samples`` 10,000: 100 steps a
+   sub-epoch) and 5 valid pieces (1,000 pairs): train loss falls,
+   validation MRR rises above epoch 1's and above twice chance, no NaN,
+   the top-k kernel launched at least twice an epoch, the last
+   evaluation's ranks equal the full argsort's, and the dump read back by
+   ``run_eval`` gives the MRR ``fit`` reported; ``cli.run_train.main
+   --host_data`` on the card (the dump and curves written, no snapshot
+   left, the run reporting the host iterator); kill and resume (2 epochs,
+   then resumed to 4, over a pool that reshuffles every second epoch) bit
+   for bit as an uninterrupted 4-epoch run under deterministic cuDNN; the
+   step time (CUDA events), the eigh step, updates/s and seconds an epoch
+   inside ``fit`` (step loop, iterator wait, evaluation), launches a step,
+   peak memory, and kernel 1 at the evaluation's shape (Q = N = 1,000).
+
+12. device_pool: batches assembled on the card against the CPU from one
+   set of draws made on the CPU, bit-identical in every branch of the
+   assembly (scale and translation, translation only, scale only,
+   neither, the frequency shift), 5 batches of 100 each, and one
+   assembly's time; phase 11's fit over the same pieces lifted onto
+   device pools (``from_host_pool``, as ``run_train`` lifts them), held to
+   phase 11's criteria, its evaluation the fused one
+   (``engine.make_fused_eval``, ranks through kernel 1); its updates/s,
+   step-loop and evaluation seconds an epoch and peak memory beside phase
+   11's; kill and resume over device pools bit for bit; ``run_train``
+   without flags, the run reporting the device pool.
 
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
-phase 11 (``fit``, the CLI, the resume runs); each of those phases must
-launch the top-k kernel, and the ``kernels`` line reports the sum over
-phases 4-11, beside each kernel's times at the main path's shape (top-k:
-Q = 100, N = 12,000, k = 25; gather: one 6040-px strip). The last line is
-``{"ok": true, "device": {...}}``.
+phases 11 and 12 (``fit``, ``run_eval``, the CLI, the resume runs); each
+of those phases must launch the top-k kernel, and the ``kernels`` line
+reports the sum over phases 4-12, beside each kernel's times at the main
+path's shape (top-k: Q = 100, N = 12,000, k = 25; gather: one 6040-px
+strip). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1228,84 +1242,53 @@ def valid_npz(tmp, pieces):
     return split
 
 
-def phase_train(torch, ctx):
-    from audio_sheet_retrieval_tpu_torch import config
-    from audio_sheet_retrieval_tpu_torch.cli import run_eval, run_train
+def learning_fit(torch, ctx, data, iters, count):
+    """A full-width ``fit`` of ``TRAIN_EPOCHS`` epochs over ``data`` with
+    the iterators ``iters``, held to the learning criteria: train loss
+    falls, validation MRR rises above epoch 1's and above twice chance, no
+    NaN, kernel 1 launched at least twice an epoch; the last evaluation's
+    ranks through kernel 1 equal the full argsort's, and the dump read back
+    by ``run_eval`` gives the MRR ``fit`` reported -> the fit's record."""
+    from audio_sheet_retrieval_tpu_torch.cli import run_eval
     from audio_sheet_retrieval_tpu_torch.data import synthetic
-    from audio_sheet_retrieval_tpu_torch.data.iterators import (
-        MultiviewPoolIteratorUnsupervised as PoolIterator,
-    )
     from audio_sheet_retrieval_tpu_torch.models import cca_model
-    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
     from audio_sheet_retrieval_tpu_torch.ops import metrics
-    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
-        topk_gallery,
-        topk_gallery_plain,
-    )
     from audio_sheet_retrieval_tpu_torch.train import engine
-    from audio_sheet_retrieval_tpu_torch.train import state as ts
 
     dev, cfg = ctx["dev"], ctx["cfg"]
-    assert run_train.build_arg_parser().get_default("device") == "cuda"
-    augment = config.load_experiment_config("mutopia_full_aug").augment
-    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
-
-    def count(fn):
-        zero_launches()
-        out = fn()
-        for name, n in read_launches().items():
-            launches[name] += n
-        return out
-
-    # 1. one step, card against CPU, polar then eigh
-    tree = lasagne_import.train_params_to_numpy(cca_model.init_model(
-        torch.Generator().manual_seed(0), cfg, device="cpu"))
-    small = synthetic.load_synthetic_retrieval(
-        n_train=1, n_valid=1, n_test=1, n_onsets=120, augment=augment)
-    x1, x2 = small["train"][0:cfg.batch_size]
-    step_err = {w: step_card_vs_cpu(
-        torch, dataclasses.replace(cfg, whitening=w), tree, x1, x2, dev)
-        for w in ("polar", "eigh")}
-    emit("train", check="one step, card vs cpu", batch=cfg.batch_size,
-         errors=step_err)
-
-    # 2. a short full-width fit, its evaluation through kernel 1
-    t0 = time.perf_counter()
-    data = synthetic.load_synthetic_retrieval(**TRAIN_PIECES, augment=augment)
-    pools_s = time.perf_counter() - t0
     n_va = TRAIN_PIECES["n_valid"] * TRAIN_PIECES["n_onsets"]   # 1,000
-    assert data["train"].shape[0] == (TRAIN_PIECES["n_train"]
-                                      * TRAIN_PIECES["n_onsets"])
-    assert data["valid"].shape[0] == n_va
     fit_cfg = dataclasses.replace(cfg, max_epochs=TRAIN_EPOCHS)
     recs = []
     with tempfile.TemporaryDirectory() as tmp:
         dump = os.path.join(tmp, "params.pkl")
         torch.cuda.reset_peak_memory_stats()
-        best, best_map = count(lambda: engine.fit(
-            cca_model.init_model(torch.Generator().manual_seed(23), cfg,
-                                 device="cpu"),
-            data, fit_cfg, PoolIterator(cfg.batch_size,
-                                        k_samples=cfg.k_samples),
-            PoolIterator(cfg.batch_size, shuffle=False), device=dev,
-            out_path=tmp, dump_file=dump, verbose=False,
-            on_epoch=recs.append))
-        fit_peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        fit_launches = dict(launches)
+        launches = {}
+
+        def run():
+            out = engine.fit(
+                cca_model.init_model(torch.Generator().manual_seed(23), cfg,
+                                     device="cpu"),
+                data, fit_cfg, *iters, device=dev, out_path=tmp,
+                dump_file=dump, verbose=False, on_epoch=recs.append)
+            launches.update(read_launches())
+            return out
+
+        best, best_map = count(run)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
         assert len(recs) == TRAIN_EPOCHS, recs
         assert all(np.isfinite(r["train_loss"]) for r in recs), recs
         assert recs[-1]["train_loss"] < recs[0]["train_loss"], recs
         chance = float(np.mean(1.0 / np.arange(1, n_va + 1)))
         assert recs[-1]["map_va"] > recs[0]["map_va"], recs
         assert recs[-1]["map_va"] > 2 * chance, recs
-        assert fit_launches["topk_gallery"] >= 2 * TRAIN_EPOCHS, fit_launches
+        assert launches["topk_gallery"] >= 2 * TRAIN_EPOCHS, launches
         # the valid codes of the best params, as fit's evaluation embeds
         # them: kernel 1's ranks equal the full argsort's
         embed_pair = engine.make_eval_fns(cfg)[0]
         folded = best.to(dev).fold()
         V = [embed_pair(folded, torch.from_numpy(a).to(dev),
                         torch.from_numpy(b).to(dev))
-             for a, b in (data["valid"][i:i + cfg.batch_size]
+             for a, b in (ctx["valid_pool"][i:i + cfg.batch_size]
                           for i in range(0, n_va, cfg.batch_size))]
         lv1 = torch.cat([v[0] for v in V]).cpu().numpy()
         lv2 = torch.cat([v[1] for v in V]).cpu().numpy()
@@ -1322,24 +1305,32 @@ def phase_train(torch, ctx):
             ["--data", "npz:" + tmp, "--train_split", split, "--n_test",
              str(n_va), "--param_file", dump, "--device", str(dev)]))
         assert abs(ev["map"] - best_map) <= FIT_MRR_ATOL, (ev, best_map)
-    emit("train", check="fit", epochs=recs, best_map=best_map,
-         chance_mrr=chance, run_eval_map=ev["map"], pools_seconds=pools_s,
-         max_memory_allocated_mb=fit_peak_mb, eval_ranks=rank_check,
-         launches=fit_launches)
+    return dict(epochs=recs, best_map=best_map, chance_mrr=chance,
+                run_eval_map=ev["map"], max_memory_allocated_mb=peak_mb,
+                eval_ranks=rank_check, launches=launches)
 
-    # 3. the CLI on the card
-    with tempfile.TemporaryDirectory() as tmp:
-        count(lambda: run_train.main(["--data", "synthetic", "--max_epochs",
-                                      "2", "--exp_root", tmp]))
-        out = os.path.join(tmp, cfg.name)
-        files = sorted(os.listdir(out))
-        assert "params.pkl" in files and "results.pkl" in files, files
-        assert not any(f.startswith("fit_state") for f in files), files
-    emit("train", check="run_train cli", files=files)
 
-    # 4. kill and resume, bit for bit, under deterministic cuDNN; PyTorch's
-    # deterministic-algorithms check, in warning mode, names every op of
-    # the path that has no deterministic CUDA implementation
+def fit_numbers(recs) -> list:
+    return [dict(number=r["number"], data=r["data"],
+                 updates_per_s=r["updates_per_s"],
+                 step_loop_s=r["loop_seconds"],
+                 iterator_wait_s=r["wait_seconds"],
+                 iterator_wait_share=r["wait_seconds"] / r["loop_seconds"],
+                 eval_s=r["eval_seconds"]) for r in recs]
+
+
+def resume_bit_identical(torch, ctx, data_and_iters, count):
+    """Kill and resume, bit for bit, under deterministic cuDNN: a 4-epoch
+    ``fit`` against one stopped after 2 epochs and resumed from its
+    snapshot to 4 (the train pool reshuffles every second epoch);
+    ``data_and_iters()`` makes fresh data and iterators. PyTorch's
+    deterministic-algorithms check, in warning mode, names every op of the
+    path that has no deterministic CUDA implementation -> (epochs, those
+    ops)."""
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.train import engine
+
+    dev, cfg = ctx["dev"], ctx["cfg"]
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic = True
@@ -1348,14 +1339,12 @@ def phase_train(torch, ctx):
     res_cfg = dataclasses.replace(cfg, k_samples=150, patience=50)
 
     def resume_run(outdir, resume_file, n_epochs):
-        rdata = synthetic.load_synthetic_retrieval(**RESUME_PIECES,
-                                                   augment=augment)
         recs = []
+        data, train_it, valid_it = data_and_iters()
         count(lambda: engine.fit(
             cca_model.init_model(torch.Generator().manual_seed(5), cfg,
                                  device="cpu"),
-            rdata, res_cfg, PoolIterator(cfg.batch_size, k_samples=150),
-            PoolIterator(cfg.batch_size, shuffle=False), device=dev,
+            data, res_cfg, train_it, valid_it, device=dev,
             out_path=outdir, num_epochs=n_epochs, verbose=False,
             on_epoch=recs.append, resume_file=resume_file))
         return [(r["train_loss"], r["valid_loss"], r["map_va"], r["map_tr"])
@@ -1376,6 +1365,113 @@ def phase_train(torch, ctx):
     nondeterministic = sorted({str(w.message)[:160] for w in caught
                                if "determinis" in str(w.message)})
     assert first == full[:2] and second == full[2:], (full, first, second)
+    return full, nondeterministic
+
+
+def cli_run(count, argv, path):
+    """``run_train.main(argv)`` on the card into a temporary root: the dump
+    and the curves written, no snapshot left, and the data path the run
+    itself printed (its "Training data:" line) naming ``path`` -> (files,
+    that line)."""
+    import contextlib
+    import io
+
+    from audio_sheet_retrieval_tpu_torch.cli import run_train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            count(lambda: run_train.main(argv + ["--exp_root", tmp]))
+        root = os.path.join(tmp, os.listdir(tmp)[0])
+        files = sorted(os.listdir(root))
+    assert "params.pkl" in files and "results.pkl" in files, files
+    assert not any(f.startswith("fit_state") for f in files), files
+    said = [ln for ln in out.getvalue().splitlines()
+            if ln.startswith("Training data:")]
+    assert len(said) == 1 and said[0].startswith("Training data: " + path), \
+        said
+    return files, said[0]
+
+
+def launch_counter(launches):
+    """-> count(fn): runs ``fn`` with the launch counters zeroed before
+    and adds what it launched to ``launches``."""
+    def count(fn):
+        zero_launches()
+        out = fn()
+        for name, n in read_launches().items():
+            launches[name] += n
+        return out
+    return count
+
+
+def phase_train(torch, ctx):
+    from audio_sheet_retrieval_tpu_torch import config
+    from audio_sheet_retrieval_tpu_torch.cli import run_train
+    from audio_sheet_retrieval_tpu_torch.data import synthetic
+    from audio_sheet_retrieval_tpu_torch.data.iterators import (
+        MultiviewPoolIteratorUnsupervised as PoolIterator,
+    )
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
+        topk_gallery,
+        topk_gallery_plain,
+    )
+    from audio_sheet_retrieval_tpu_torch.train import engine
+    from audio_sheet_retrieval_tpu_torch.train import state as ts
+
+    dev, cfg = ctx["dev"], ctx["cfg"]
+    assert run_train.build_arg_parser().get_default("device") == "cuda"
+    augment = config.load_experiment_config("mutopia_full_aug").augment
+    ctx["augment"] = augment
+    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
+    count = launch_counter(launches)
+
+    # 1. one step, card against CPU, polar then eigh
+    tree = lasagne_import.train_params_to_numpy(cca_model.init_model(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    small = synthetic.load_synthetic_retrieval(
+        n_train=1, n_valid=1, n_test=1, n_onsets=120, augment=augment)
+    x1, x2 = small["train"][0:cfg.batch_size]
+    step_err = {w: step_card_vs_cpu(
+        torch, dataclasses.replace(cfg, whitening=w), tree, x1, x2, dev)
+        for w in ("polar", "eigh")}
+    emit("train", check="one step, card vs cpu", batch=cfg.batch_size,
+         errors=step_err)
+
+    # 2. a short full-width fit over the host iterator, its evaluation
+    # through kernel 1
+    t0 = time.perf_counter()
+    data = synthetic.load_synthetic_retrieval(**TRAIN_PIECES, augment=augment)
+    pools_s = time.perf_counter() - t0
+    assert data["train"].shape[0] == (TRAIN_PIECES["n_train"]
+                                      * TRAIN_PIECES["n_onsets"])
+    assert data["valid"].shape[0] == (TRAIN_PIECES["n_valid"]
+                                      * TRAIN_PIECES["n_onsets"])
+    ctx["train_data"], ctx["valid_pool"] = data, data["valid"]
+    host = learning_fit(torch, ctx, data, (
+        PoolIterator(cfg.batch_size, k_samples=cfg.k_samples),
+        PoolIterator(cfg.batch_size, shuffle=False)), count)
+    assert {r["data"] for r in host["epochs"]} == {"host iterator"}
+    ctx["host_fit"] = host
+    emit("train", check="fit", pools_seconds=pools_s, **host)
+
+    # 3. the CLI on the card over the host iterator
+    files, said = cli_run(count, ["--data", "synthetic", "--max_epochs", "2",
+                                  "--host_data"], "host iterator")
+    emit("train", check="run_train cli --host_data", files=files,
+         reported=said)
+
+    # 4. kill and resume, bit for bit, under deterministic cuDNN
+    def host_data():
+        rdata = synthetic.load_synthetic_retrieval(**RESUME_PIECES,
+                                                   augment=augment)
+        return rdata, PoolIterator(cfg.batch_size, k_samples=150), \
+            PoolIterator(cfg.batch_size, shuffle=False)
+
+    full, nondeterministic = resume_bit_identical(torch, ctx, host_data,
+                                                  count)
     emit("train", check="kill and resume", epochs=full,
          resumed_bit_identical=True, cudnn_deterministic=True,
          ops_without_deterministic_cuda_path=nondeterministic)
@@ -1412,16 +1508,143 @@ def phase_train(torch, ctx):
               max_abs_err=err)
     emit("timing", kernel="topk_gallery", case="training evaluation",
          Q=1000, N=1000, d=32, k=25, **k1)
-    per_epoch = [dict(number=r["number"], updates_per_s=r["updates_per_s"],
-                      step_loop_s=r["loop_seconds"],
-                      iterator_wait_s=r["wait_seconds"],
-                      iterator_wait_share=r["wait_seconds"]
-                      / r["loop_seconds"], eval_s=r["eval_seconds"])
-                 for r in recs]
-    emit("train", check="numbers", step=numbers, fit_epochs=per_epoch,
-         fit_max_memory_allocated_mb=fit_peak_mb, launches=launches)
+    emit("train", check="numbers", step=numbers,
+         fit_epochs=fit_numbers(host["epochs"]),
+         fit_max_memory_allocated_mb=host["max_memory_allocated_mb"],
+         launches=launches)
     assert launches["topk_gallery"] > 0, "training ran no top-k kernel"
     assert not torch.backends.cudnn.allow_tf32
+    return launches
+
+
+# --- phase 12: the device pool --------------------------------------------------
+
+# the four branches of the batch assembly and the frequency shift, on top
+# of NO_AUGMENT (the shipped mutopia_full_aug is the first)
+POOL_BRANCHES = {
+    "scale_and_translation": dict(sheet_scaling=[0.95, 1.05],
+                                  system_translation=5, onset_translation=1),
+    "translation_only": dict(system_translation=5),
+    "scale_only": dict(sheet_scaling=[0.9, 1.1]),
+    "neither": {},
+    "spec_padding": dict(spec_padding=3, onset_translation=1),
+}
+
+
+def pool_card_vs_cpu(torch, dev, pieces, n_batches=5):
+    """Each branch: one set of draws made on the CPU, the batch assembled
+    on the card and on the CPU, bit-identical, over ``n_batches`` batches
+    of 100 (edge entities among them); the card's own draws in their
+    ranges; one assembly's time on the card (CUDA events) -> per branch."""
+    from audio_sheet_retrieval_tpu_torch.data import device_pool as dp
+    from audio_sheet_retrieval_tpu_torch.data.pools import NO_AUGMENT
+
+    out = {}
+    for name, extra in POOL_BRANCHES.items():
+        aug = dict(NO_AUGMENT, **extra)
+        card, cpu = (dp.DevicePool(*pieces, data_augmentation=aug,
+                                   rng=np.random.default_rng(0), device=d)
+                     for d in (dev, "cpu"))
+        assert torch.equal(card.strip.cpu(), cpu.strip)
+        assert torch.equal(card.spec.cpu(), cpu.spec)
+        assert np.array_equal(card._order, cpu._order)
+        g = torch.Generator().manual_seed(1)
+        rng = np.random.default_rng(2)
+        n = cpu.shape[0]
+        for _ in range(n_batches):
+            sel = rng.integers(0, n, 100)
+            sel[:2] = (0, n - 1)
+            coords, onsets = cpu.entity_coords[sel], cpu.entity_onsets[sel]
+            draws = dp.draw(g, 100, aug, True)
+            want = cpu._assemble(cpu.strip, cpu.spec, torch.from_numpy(coords),
+                                 torch.from_numpy(onsets), draws, True)
+            got = card._assemble(
+                card.strip, card.spec, card.put(coords), card.put(onsets),
+                dp.Draws(*(None if x is None else x.to(dev) for x in draws)),
+                True)
+            assert all(a.device.type == "cuda" for a in got)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), \
+                name
+        d = dp.draw(card.generator, 1000, aug, True)
+        if d.scale is not None:
+            sc = aug["sheet_scaling"]
+            assert sc[0] <= float(d.scale.min()) <= float(d.scale.max()) \
+                <= sc[1]
+        if d.shift is not None:
+            assert set(d.shift.tolist()) == set(range(-aug["spec_padding"],
+                                                      0))
+        c, o = card.put(coords), card.put(onsets)
+        out[name] = dict(batches_bit_identical=n_batches, batch=100,
+                         assemble_ms=cuda_ms(lambda: card.assemble(c, o)))
+    return out
+
+
+def phase_device_pool(torch, ctx):
+    from audio_sheet_retrieval_tpu_torch.cli import run_train
+    from audio_sheet_retrieval_tpu_torch.data import device_pool as dp
+    from audio_sheet_retrieval_tpu_torch.data import synthetic
+
+    dev, cfg, augment = ctx["dev"], ctx["cfg"], ctx["augment"]
+    assert run_train.build_arg_parser().get_default("host_data") is False
+    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
+    count = launch_counter(launches)
+
+    # a. batches, card against CPU, in every branch
+    branches = pool_card_vs_cpu(torch, dev, synthetic.make_piece_list(
+        23, 10, n_onsets=TRAIN_PIECES["n_onsets"]))
+    emit("device_pool", check="batches, card vs cpu", branches=branches)
+
+    # b. the same full-width fit over the device pools, lifted as
+    # run_train lifts them
+    def lift(data, seed):
+        return dict(data, train=dp.from_host_pool(
+            data["train"], rng=np.random.default_rng(seed), device=dev),
+            valid=dp.from_host_pool(data["valid"], shuffle=False,
+                                    rng=np.random.default_rng(seed + 1),
+                                    device=dev))
+
+    t0 = time.perf_counter()
+    data = lift(ctx["train_data"], 23)
+    lift_s = time.perf_counter() - t0
+    pool_mb = (data["train"].strip.numel() + 4 * data["train"].spec.numel()
+               + data["valid"].strip.numel()
+               + 4 * data["valid"].spec.numel()) / 2**20
+    fit = learning_fit(torch, ctx, data, (
+        dp.DeviceBatchIterator(cfg.batch_size, k_samples=cfg.k_samples),
+        dp.DeviceBatchIterator(cfg.batch_size, shuffle=False, train=False)),
+        count)
+    assert {r["data"] for r in fit["epochs"]} == {"device pool"}
+    emit("device_pool", check="fit", lift_seconds=lift_s, pools_mb=pool_mb,
+         **fit)
+
+    # c. numbers, beside the host iterator's fit of phase 11
+    emit("device_pool", check="numbers",
+         device_pool=fit_numbers(fit["epochs"]),
+         host_iterator=fit_numbers(ctx["host_fit"]["epochs"]),
+         max_memory_allocated_mb=dict(
+             device_pool=fit["max_memory_allocated_mb"],
+             host_iterator=ctx["host_fit"]["max_memory_allocated_mb"]))
+
+    # d. kill and resume over the device pools, every augmentation on
+    def device_data():
+        rdata = lift(synthetic.load_synthetic_retrieval(
+            **RESUME_PIECES, augment=augment), 5)
+        return rdata, dp.DeviceBatchIterator(cfg.batch_size, k_samples=150), \
+            dp.DeviceBatchIterator(cfg.batch_size, shuffle=False, train=False)
+
+    full, nondeterministic = resume_bit_identical(torch, ctx, device_data,
+                                                  count)
+    emit("device_pool", check="kill and resume", epochs=full,
+         resumed_bit_identical=True, cudnn_deterministic=True,
+         ops_without_deterministic_cuda_path=nondeterministic)
+
+    # e. run_train's default path is the device pool
+    files, said = cli_run(count, ["--data", "synthetic", "--max_epochs",
+                                  "2"], "device pool, batches assembled on "
+                          "cuda")
+    emit("device_pool", check="run_train cli", files=files, reported=said,
+         launches=launches)
+    assert launches["topk_gallery"] > 0, "the device pool ran no top-k kernel"
     return launches
 
 
@@ -1432,7 +1655,7 @@ def main() -> int:
     kernel_stats = phase_kernels(torch)
     ctx, launches = phase_serving(torch)
     for phase in (phase_s2a, phase_streaming, phase_audio,
-                  phase_eval_refine, phase_train):
+                  phase_eval_refine, phase_train, phase_device_pool):
         for name, n in phase(torch, ctx).items():
             launches[name] += n
     rows = []
