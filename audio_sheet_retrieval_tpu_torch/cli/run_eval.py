@@ -42,8 +42,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dump_results", action="store_true")
     parser.add_argument("--conv_precision", default=None,
                         choices=["highest", "high", "default"],
-                        help="f32 conv precision (only 'highest' is ported: "
-                             "the others raise)")
+                        help="f32 conv precision: 'highest' or 'high' "
+                             "(both full f32, TF32 off: see "
+                             "cca_model.check_numerics); 'default' is not "
+                             "ported")
     parser.add_argument("--exp_root", type=str, default=None)
     parser.add_argument("--param_file", type=str, default=None,
                         help="explicit checkpoint path (overrides EXP_ROOT).")

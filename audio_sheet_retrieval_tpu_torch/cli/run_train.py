@@ -14,8 +14,10 @@ Without ``--host_data`` the pools are lifted onto ``--device`` as the JAX
 package's CLI lifts them (``data.device_pool.from_host_pool``: the train
 pool shuffled from ``--seed``, the valid pool in order from ``--seed`` + 1)
 and batches are assembled there; ``--host_data`` keeps the reference's
-per-batch host preparation in a producer thread. Training is float32
-only: ``--compute_dtype bfloat16`` raises ``NotImplementedError``.
+per-batch host preparation in a producer thread. ``--compute_dtype
+bfloat16`` runs the encoders' convolutions in bf16 (BN statistics, the CCA
+layer, the loss, master weights and Adam stay float32; no loss scaling,
+as in the JAX package).
 """
 
 from __future__ import annotations
@@ -67,8 +69,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--exp_root", type=str, default=None)
     parser.add_argument("--compute_dtype", default=None,
                         choices=["float32", "bfloat16"],
-                        help="encoder math dtype (only float32 is ported: "
-                             "bfloat16 raises)")
+                        help="encoder conv dtype (bfloat16: bf16 convs, "
+                             "float32 statistics and weights)")
     parser.add_argument("--whitening", default=None,
                         choices=["polar", "eigh"],
                         help="CCA whitening (polar: Newton-Schulz, loss-"

@@ -54,8 +54,10 @@ def build_arg_parser():
     parser.add_argument("--dump_results", action="store_true")
     parser.add_argument("--conv_precision", default=None,
                         choices=["highest", "high", "default"],
-                        help="f32 conv precision; only 'highest' (full f32, "
-                             "TF32 off) is ported")
+                        help="f32 conv precision: 'highest' or 'high' "
+                             "(both full f32, TF32 off: see "
+                             "cca_model.check_numerics); 'default' is not "
+                             "ported")
     parser.add_argument("--exp_root", type=str, default=None)
     parser.add_argument("--param_file", type=str, default=None)
     parser.add_argument("--db_file", type=str, default="audio_db_file.pkl")

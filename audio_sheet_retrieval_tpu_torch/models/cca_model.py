@@ -6,7 +6,10 @@ projection, so each view embeds on its own. Inputs are NCHW: view 1 a
 prepared sheet batch [B, 1, 80, 100] (``train.engine.prepare_view1_device``),
 view 2 a spectrogram batch [B, 1, 92, 42]. The eval encoders carry BN folded
 into their convolutions (the loader's ``encoder.fold_batch_norm``), the JAX
-package's serving fast path, so one forward serves every caller.
+package's serving fast path, so one forward serves every caller; in
+bfloat16 they run the JAX package's unfolded form (``encoder.BF16``), or
+with ``folded=True`` its folded one. ``check_numerics`` maps a config's
+``compute_dtype`` / ``conv_precision`` onto the encoder's mode.
 
 Training holds a ``TrainParams``: two ``encoder.TrainEncoder``s (BN apart
 from the convs) and the CCA state, U and V trainable parameters when the
@@ -55,18 +58,30 @@ class ModelParams(NamedTuple):
                            self.cca.to(device))
 
 
-def check_numerics(cfg: ModelConfig) -> None:
-    """The port runs float32 at full precision only (TF32 off). The JAX
-    package's bf16 compute and bf16x3 ``high`` convs have no counterpart
-    yet (ROADMAP Queue 1 #1): TF32 is not bf16x3, so neither is mapped."""
+def check_numerics(cfg: ModelConfig) -> str:
+    """``cfg``'s numerics -> the encoder mode (``encoder.HIGHEST`` or
+    ``BF16``), as the JAX package reads them (models/encoder.py:71-91):
+    ``compute_dtype="bfloat16"`` ignores ``conv_precision``. In float32,
+    "highest" and "high" both run full float32 (TF32 off): the JAX
+    package's HIGH promises about 1e-6 relative (bf16x3 on the TPU), which
+    float32 meets, and XLA's CPU runs it as float32 too; on an H100 a
+    TF32 split costs more than one float32 conv and adds error. The CCA
+    head and ``length_norm`` are float32 in every mode.
+    ``conv_precision="default"`` (one bf16 pass on the TPU) is not ported:
+    ROADMAP "Not to port" lists it as dominated."""
+    if cfg.compute_dtype == "bfloat16":
+        return enc.BF16
     if cfg.compute_dtype != "float32":
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                         f"got {cfg.compute_dtype!r}")
+    if cfg.conv_precision in ("highest", "high"):
+        return enc.HIGHEST
+    if cfg.conv_precision == "default":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
-            f"(ROADMAP Queue 1 #1); use float32")
-    if cfg.conv_precision != "highest":
-        raise NotImplementedError(
-            f"conv_precision={cfg.conv_precision!r} is not ported yet "
-            f"(ROADMAP Queue 1 #1); use 'highest'")
+            "conv_precision='default' is not ported (ROADMAP.md, \"Not to "
+            "port\": dominated, PARITY #16); use 'highest' or 'high'")
+    raise ValueError(f"conv_precision must be 'highest', 'high' or "
+                     f"'default', got {cfg.conv_precision!r}")
 
 
 def length_norm(x: torch.Tensor) -> torch.Tensor:
@@ -74,33 +89,40 @@ def length_norm(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
 
 
+def _mode(cfg: ModelConfig, folded: bool) -> str:
+    mode = check_numerics(cfg)
+    return enc.BF16_FOLDED if folded and mode == enc.BF16 else mode
+
+
 @torch.no_grad()
 def pre_cca_latent_v1(params: ModelParams, x1: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
+                      cfg: ModelConfig, *, folded: bool = False
+                      ) -> torch.Tensor:
     """View-1 encoder output BEFORE the CCA head — input to the large-batch
-    refinement fit (reference:refine_cca.py:86-97)."""
-    check_numerics(cfg)
-    return params.view1(x1)
+    refinement fit (reference:refine_cca.py:86-97). In bf16, ``folded``
+    gives the JAX package's folded form (``encoder.BF16_FOLDED``, what its
+    ``RetrievalWrapper`` serves) instead of its ``embed_view1``'s."""
+    return params.view1(x1, _mode(cfg, folded))
 
 
 @torch.no_grad()
 def pre_cca_latent_v2(params: ModelParams, x2: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
-    check_numerics(cfg)
-    return params.view2(x2)
+                      cfg: ModelConfig, *, folded: bool = False
+                      ) -> torch.Tensor:
+    return params.view2(x2, _mode(cfg, folded))
 
 
 def embed_view1(params: ModelParams, x1: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, *, folded: bool = False) -> torch.Tensor:
     """Sheet embedding: encoder -> affine CCA -> L2."""
-    h1 = pre_cca_latent_v1(params, x1, cfg)
+    h1 = pre_cca_latent_v1(params, x1, cfg, folded=folded)
     return length_norm((h1 - params.cca.mean1) @ params.cca.U)
 
 
 def embed_view2(params: ModelParams, x2: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, *, folded: bool = False) -> torch.Tensor:
     """Audio embedding: encoder -> affine CCA -> L2."""
-    h2 = pre_cca_latent_v2(params, x2, cfg)
+    h2 = pre_cca_latent_v2(params, x2, cfg, folded=folded)
     return length_norm((h2 - params.cca.mean2) @ params.cca.V)
 
 
@@ -205,9 +227,11 @@ def forward_train(params: TrainParams, x1: torch.Tensor, x2: torch.Tensor,
     ``NewState`` (BN EMA and CCA state; ``params`` is not changed), and the
     monitored canonical correlations.
     """
-    check_numerics(cfg)
-    h1, bn1 = params.view1.forward_train(x1, cfg.bn_epsilon, cfg.bn_alpha)
-    h2, bn2 = params.view2.forward_train(x2, cfg.bn_epsilon, cfg.bn_alpha)
+    mode = check_numerics(cfg)
+    h1, bn1 = params.view1.forward_train(x1, cfg.bn_epsilon, cfg.bn_alpha,
+                                         mode)
+    h2, bn2 = params.view2.forward_train(x2, cfg.bn_epsilon, cfg.bn_alpha,
+                                         mode)
     state = params.cca
     if cfg.use_ccal:
         # polar whitening changes the monitored corr; with a nonzero

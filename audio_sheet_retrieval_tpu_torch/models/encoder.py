@@ -24,10 +24,21 @@ running ``mean`` and ``inv_std`` (buffers) follow an EMA with rate
 keeps an unbiased variance). ``TrainEncoder.fold`` gives the eval
 ``Encoder``, so evaluation and serving keep one forward.
 
-Numerics: float32 with TF32 off (the JAX package pins HIGHEST precision for
-f32 convs). cuDNN runs f32 convolutions in TF32 unless told otherwise, so
-building an encoder switches TF32 off for convolutions and matmuls
-(``pin_full_f32``).
+Numerics: the JAX package's (its ``_conv``, models/encoder.py:71-91), each
+a mode string that ``cca_model.check_numerics`` maps a config onto (its
+``conv_precision="high"`` runs ``HIGHEST``: see there):
+
+* ``HIGHEST``, float32 at full precision. cuDNN runs f32 convolutions in
+  TF32 unless told otherwise, so building an encoder switches TF32 off for
+  convolutions and matmuls (``pin_full_f32``).
+* ``BF16``, the conv in bfloat16 (input and kernel cast, output rounded to
+  bf16, then widened); BN, ELU, pooling and the mean in float32. The eval
+  encoder keeps the unscaled kernel in bf16 (``ConvBlock.w16``) and applies
+  the BN scale after widening, as the JAX package's unfolded
+  ``encoder_apply`` does: rounding the folded kernel ``w * s`` instead is
+  another model at bf16 resolution. ``BF16_FOLDED`` is that other model,
+  the JAX ``encoder_apply_folded`` form its ``RetrievalWrapper`` serves:
+  the folded kernel cast to bf16, the folded bias added after widening.
 """
 
 from __future__ import annotations
@@ -40,6 +51,11 @@ import torch.nn.functional as F
 from torch import nn
 
 N_CONV_BLOCKS = 9  # 8x 3x3 + 1x 1x1
+
+HIGHEST = "highest"
+BF16 = "bfloat16"
+BF16_FOLDED = "bfloat16_folded"
+MODES = (HIGHEST, BF16, BF16_FOLDED)
 
 
 def block_channels(num_filters: int, dim_latent: int) -> List[int]:
@@ -65,16 +81,34 @@ def maxpool2(h: torch.Tensor) -> torch.Tensor:
 
 class ConvBlock(nn.Module):
     """conv with eval BN folded into its weight and bias (see
-    ``fold_batch_norm``) [-> ELU, applied by the encoder]."""
+    ``fold_batch_norm``) [-> ELU, applied by the encoder]. For ``BF16``
+    it also keeps the unscaled kernel in bf16 (``w16``) and the BN scale
+    ``s = inv_std * gamma`` (``scale``)."""
 
     def __init__(self, c_in: int, c_out: int, ksize: int, *, device):
         super().__init__()
-        self.w = nn.Parameter(torch.zeros((c_out, c_in, ksize, ksize),
-                                          device=device))
+        shape = (c_out, c_in, ksize, ksize)
+        self.w = nn.Parameter(torch.zeros(shape, device=device))
         self.b = nn.Parameter(torch.zeros(c_out, device=device))
+        self.register_buffer("w16", torch.zeros(shape, dtype=torch.bfloat16,
+                                                device=device))
+        self.register_buffer("scale", torch.ones(c_out, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.w, self.b, padding=self.w.shape[-1] // 2)
+    def forward(self, x: torch.Tensor, mode: str = HIGHEST) -> torch.Tensor:
+        pad = self.w.shape[-1] // 2
+        if mode == HIGHEST:
+            return F.conv2d(x, self.w, self.b, padding=pad)
+        x16 = x.to(torch.bfloat16)
+        if mode == BF16:
+            # BN of the widened raw output, (h - mean) * s + beta, as
+            # h * s + b (b = beta - mean * s): float32, one pass
+            return torch.addcmul(self.b[:, None, None],
+                                 F.conv2d(x16, self.w16, padding=pad),
+                                 self.scale[:, None, None])
+        if mode == BF16_FOLDED:
+            return (F.conv2d(x16, self.w.to(torch.bfloat16), padding=pad)
+                    + self.b[:, None, None])
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
 
 
 class Encoder(nn.Module):
@@ -91,33 +125,40 @@ class Encoder(nn.Module):
                       device=device)
             for i, (ci, co) in enumerate(zip(c_ins, chans)))
 
-    def block(self, i: int, h: torch.Tensor) -> torch.Tensor:
-        """Block ``i``: conv-BN, ELU on all but the last; no pooling."""
-        h = self.blocks[i](h)
+    def block(self, i: int, h: torch.Tensor,
+              mode: str = HIGHEST) -> torch.Tensor:
+        """Block ``i``: conv-BN, ELU on all but the last; no pooling;
+        float32 out in every mode."""
+        h = self.blocks[i](h, mode)
         return F.elu(h) if i < N_CONV_BLOCKS - 1 else h
 
-    def forward_from(self, h: torch.Tensor, first: int) -> torch.Tensor:
+    def forward_from(self, h: torch.Tensor, first: int,
+                     mode: str = HIGHEST) -> torch.Tensor:
         """Blocks ``first``..8 with their pools, then the global mean."""
         for i in range(first, N_CONV_BLOCKS):
-            h = self.block(i, h)
+            h = self.block(i, h, mode)
             if pools_after(i):
                 h = maxpool2(h)
         return h.mean(dim=(2, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_from(x, 0)
+    def forward(self, x: torch.Tensor, mode: str = HIGHEST) -> torch.Tensor:
+        return self.forward_from(x, 0, mode)
 
 
 def fold_batch_norm(blk: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """One block's eval BN folded into its conv, in float32 on the host:
     ((x*w) - mean)*s + beta == x*(w*s) + (beta - mean*s), s = inv_std*gamma
     (exact algebra: BN is affine and comes before the ELU). ``w`` is OIHW.
-    -> {"w", "b"}, the tensors of a ``ConvBlock``."""
+    -> {"w", "b", "w16", "scale"}, the tensors of a ``ConvBlock``: ``w16``
+    is the unscaled kernel (in float32 here; copying it into the block's
+    bf16 buffer rounds it to nearest even, as the JAX package's cast does)
+    and ``scale`` is ``s``."""
     f32 = {k: np.asarray(blk[k], np.float32)
            for k in ("w", "beta", "gamma", "mean", "inv_std")}
     s = f32["inv_std"] * f32["gamma"]
     return {"w": f32["w"] * s[:, None, None, None],
-            "b": f32["beta"] - f32["mean"] * s}
+            "b": f32["beta"] - f32["mean"] * s,
+            "w16": np.array(f32["w"]), "scale": s}
 
 
 # --- training form -------------------------------------------------------------
@@ -162,10 +203,22 @@ class TrainEncoder(nn.Module):
             for i, (ci, co) in enumerate(zip(c_ins, chans)))
 
     def _run(self, x: torch.Tensor, stats: Optional[BNStats],
-             bn_epsilon: float = 1e-4):
+             bn_epsilon: float = 1e-4, mode: str = HIGHEST):
         h = x
         for i, blk in enumerate(self.blocks):
-            h = F.conv2d(h, blk.w, padding=blk.w.shape[-1] // 2)
+            pad = blk.w.shape[-1] // 2
+            if mode == BF16:
+                # widened before the statistics (JAX models/encoder.py:
+                # 75-79); autograd through the two casts gives the conv
+                # backward a bf16 cotangent and the f32 master kernel an
+                # f32 gradient, as JAX's transpose rule does
+                h = F.conv2d(h.to(torch.bfloat16), blk.w.to(torch.bfloat16),
+                             padding=pad).float()
+            elif mode == HIGHEST:
+                h = F.conv2d(h, blk.w, padding=pad)
+            else:
+                raise ValueError(f"mode must be one of {MODES[:2]}, got "
+                                 f"{mode!r}")
             if stats is None:
                 mu, inv_std = blk.mean, blk.inv_std
             else:
@@ -180,18 +233,20 @@ class TrainEncoder(nn.Module):
                     h = maxpool2(h)
         return h.mean(dim=(2, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = HIGHEST) -> torch.Tensor:
         """Eval BN with the running statistics (the unfolded form of
         ``fold()``'s forward)."""
-        return self._run(x, None)
+        return self._run(x, None, mode=mode)
 
     def forward_train(self, x: torch.Tensor, bn_epsilon: float = 1e-4,
-                      bn_alpha: float = 1e-2):
+                      bn_alpha: float = 1e-2, mode: str = HIGHEST):
         """-> (latent, new running statistics): batch-statistics BN; the new
         ``(mean, inv_std)`` of each block are the EMA of the running ones
-        with the batch's, detached, for ``set_bn_stats`` to write back."""
+        with the batch's, detached, for ``set_bn_stats`` to write back.
+        Master weights, BN state and the statistics stay float32 in every
+        ``mode``."""
         batch: BNStats = []
-        latent = self._run(x, batch, bn_epsilon)
+        latent = self._run(x, batch, bn_epsilon, mode)
         new = [((1.0 - bn_alpha) * blk.mean + bn_alpha * mu,
                 (1.0 - bn_alpha) * blk.inv_std + bn_alpha * inv_std)
                for blk, (mu, inv_std) in zip(self.blocks, batch)]

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import cca_model
+from audio_sheet_retrieval_tpu_torch.models import encoder as enc
 from audio_sheet_retrieval_tpu_torch.ops import _native
 from audio_sheet_retrieval_tpu_torch.ops.audio import INT16_MAX
 from audio_sheet_retrieval_tpu_torch.train.engine import (
@@ -183,10 +184,16 @@ def gather_feature_windows(plane: torch.Tensor, starts: torch.Tensor,
         torch.cuda.current_stream(plane.device).cuda_stream)
     _native.check(err, "gather_feature_windows")
     gather_feature_windows.launches += 1
+    if gather_feature_windows.recorded is not None:
+        gather_feature_windows.recorded.append((plane, starts, n_cols, out))
     return out
 
 
 gather_feature_windows.launches = 0
+# a list, or None: each launch's (plane, starts, n_cols, out) appended to it
+# (chip_smoke.py holds the launches of a whole build against the plain
+# version this way)
+gather_feature_windows.recorded = None
 
 
 # --- strip embedders -----------------------------------------------------------
@@ -292,13 +299,14 @@ def _strip_embed_core_fullconv(params, strip: torch.Tensor, starts,
     identification keeps its rank. This path reproduces the JAX package's
     fullconv embeddings, not the per-window ones.
     """
+    mode = cca_model.check_numerics(cfg)
     window = cfg.input_shape_1[2]
     st = host_starts(starts, 0, strip.shape[1] - window)
-    plane = fullconv_plane(params, strip, crop_h)
+    plane = fullconv_plane(params, strip, crop_h, mode)
     starts_half = torch.from_numpy((st // 2).astype(np.int32)).to(
         plane.device)
     wins = gather_feature_windows(plane, starts_half, window // 4)
-    h1 = params.view1.forward_from(wins, 2)
+    h1 = params.view1.forward_from(wins, 2, mode)
     return cca_model.length_norm((h1 - params.cca.mean1) @ params.cca.U)
 
 
@@ -313,17 +321,23 @@ def half_plane(strip: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def fullconv_plane(params, strip: torch.Tensor, crop_h: int) -> torch.Tensor:
+def fullconv_plane(params, strip: torch.Tensor, crop_h: int,
+                   mode: str = enc.HIGHEST) -> torch.Tensor:
     """uint8 strip [H, W] (even H and W) -> the dense-pooled block-1
-    feature plane [C, crop_h/4, W/2 - 1] of its half-res centre crop."""
+    feature plane [C, crop_h/4, W/2 - 1] of its half-res centre crop, in
+    the dtype block 2's conv takes: bfloat16 in ``encoder.BF16`` (as the
+    JAX package gathers it, its ops/windows.py:272-279; kernel 2 then
+    moves half the bytes), else float32."""
     half = half_plane(strip)
     # the full-res centre-crop row, halved (as the JAX package rounds it)
     r0 = _clamp_row0((strip.shape[0] // 2 - crop_h // 2) // 2, half.shape[0],
                      crop_h // 2)
     half = half[None, None, r0:r0 + crop_h // 2]
     view1 = params.view1
-    h = view1.block(1, view1.block(0, half))
-    return F.max_pool2d(h, kernel_size=2, stride=(2, 1))[0].contiguous()
+    h = view1.block(1, view1.block(0, half, mode), mode)
+    plane = F.max_pool2d(h, kernel_size=2, stride=(2, 1))[0]
+    dtype = torch.bfloat16 if mode == enc.BF16 else torch.float32
+    return plane.to(dtype).contiguous()
 
 
 # --- spectrogram upload ---------------------------------------------------------

@@ -40,11 +40,16 @@ def gallery_starts(cfg, images: Sequence[np.ndarray],
 
 def build_piece_gallery(params, cfg, images: Sequence[np.ndarray], *,
                         coords: Sequence[np.ndarray] = None,
-                        fullconv: bool = False, device) -> DeviceGallery:
+                        gather_half: bool = False, fullconv: bool = False,
+                        device) -> DeviceGallery:
     """Embed every piece strip into one gallery on ``device`` (the serving
-    DB build) with per-window piece ids. ``fullconv``: the strip-level
-    first-block path through the feature-window gather kernel."""
+    DB build) with per-window piece ids, under ``cfg``'s numerics (set
+    ``cfg.compute_dtype`` to A/B dtypes). ``gather_half``: windows cut from
+    the strip's half plane (the JAX bench's bf16 serving arm, its bench.py:
+    714-719); ``fullconv``: the strip-level first-block path through the
+    feature-window gather kernel."""
     embed = win.make_strip_embedder(params, cfg, center_crop=160,
+                                    gather_half=gather_half,
                                     fullconv=fullconv, device=device)
     codes, ids = [], []
     for p, (im, st) in enumerate(zip(images,

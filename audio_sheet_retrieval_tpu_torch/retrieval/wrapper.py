@@ -3,7 +3,9 @@
 Parity with reference:retrieval_wrapper.py and the JAX package's
 ``retrieval/wrapper.py``: ``compute_view_1/2`` embed raw sheet snippets /
 spectrogram excerpts in fixed-size batches (the encoders carry BN folded
-into their convolutions, the JAX package's serving fast path).
+into their convolutions, the JAX package's serving fast path). Under the
+config's numerics: in bfloat16 the folded form, as the JAX wrapper's
+default ``folded=True`` serves it (``encoder.BF16_FOLDED``).
 
 Accepts every checkpoint format the JAX package reads: its native
 ``asr-tpu-v1`` pytree pickles (read without jax, ``utils.io``), reference
@@ -74,11 +76,12 @@ class RetrievalWrapper:
 
     def _v1(self, x: torch.Tensor) -> torch.Tensor:
         return cca_model.embed_view1(
-            self.params, prepare_view1_device(x, self.cfg), self.cfg)
+            self.params, prepare_view1_device(x, self.cfg), self.cfg,
+            folded=True)
 
     def _v2(self, x: torch.Tensor) -> torch.Tensor:
         return cca_model.embed_view2(self.params, prepare_view2_device(x),
-                                     self.cfg)
+                                     self.cfg, folded=True)
 
     def _run(self, fn, batch: np.ndarray) -> np.ndarray:
         return fn(torch.from_numpy(batch).to(self.device)).cpu().numpy()

@@ -95,13 +95,39 @@ exits non-zero):
    11's; kill and resume over device pools bit for bit; ``run_train``
    without flags, the run reporting the device pool.
 
+13. precision: the JAX package's other two numerics on phase 4's corpus
+   and checkpoint at full width. a. ``compute_dtype="bfloat16"`` gallery
+   builds in the JAX bench's three serving arms (exact, ``gather_half``,
+   fullconv): sheet emb/s, rank<=1 >= 59/60 each, the top-1 piece equal to
+   the float32 build's of the same arm on >= 59 of 60 queries, the share
+   of excerpts whose nearest gallery row is float32's, query p50, and the
+   codes farther from float32's than float32 noise (the build ran bf16);
+   kernel 2 on its bf16 path in the fullconv build, each launch
+   bit-identical to the plain version on the same plane. b. bf16 sheet ->
+   audio: rank<=1 at least the JAX package's own bf16 count less one, the
+   audio codes farther from phase 7's than float32 noise; audio emb/s, p50.
+   c. ``conv_precision="high"`` (full float32 in the port, as
+   ``cca_model.check_numerics`` says): each block's conv of both views
+   against float64 on its real inputs, within 4x the float32 conv's error;
+   the gallery codes within 1e-5 of highest's and the ranks equal; a
+   float32 forward after a ``high`` one bit-identical to one before it (no
+   TF32 left on); emb/s. d. bf16 training: one step card vs CPU (loss
+   1e-2) and vs a float64 step (the card's gradient no farther from it,
+   relative L2, than twice the CPU's bf16 step, and farther than 10x the
+   card's float32 step: the step ran bf16), phase 12's fit in
+   bf16 held to phase 11's criteria (``run_eval``, which re-embeds the dump
+   in float32, within 1e-2 of the MRR), the step's event ms, device busy
+   and peak memory beside float32's.
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
-phases 11 and 12 (``fit``, ``run_eval``, the CLI, the resume runs); each
-of those phases must launch the top-k kernel, and the ``kernels`` line
-reports the sum over phases 4-12, beside each kernel's times at the main
-path's shape (top-k: Q = 100, N = 12,000, k = 25; gather: one 6040-px
-strip). The last line is ``{"ok": true, "device": {...}}``.
+phases 11-13 (``fit``, ``run_eval``, the CLI, the resume runs, each build
+and query set of phase 13); each of those phases must launch the top-k
+kernel, and the ``kernels`` line reports the sum over phases 4-13 (kernel
+2's bf16 launches of phase 13 among them), beside each kernel's times at
+the main path's shape (top-k: Q = 100, N = 12,000, k = 25; gather: one
+6040-px strip, float32; its bf16 times on a line of their own). The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -503,6 +529,26 @@ def phase_kernels(torch):
     assert times["gather"]["device_us"] > 0, "the profiler saw no launch"
     emit("timing", kernel="gather_feature_windows", C=24, H4=40, Wq=3019,
          n_cols=50, N=len(starts), **times["gather"])
+    # the bf16 plane the fullconv build gathers under compute_dtype=
+    # "bfloat16" (phase 13): half the bytes, the same windows
+    plane16 = plane.to(torch.bfloat16)
+    b16_ms, b16_by = gather_bound(24, 40, 3019, 50, starts.cpu().numpy(),
+                                  elem=2)
+    wide16 = plane16[None].expand(len(starts), -1, -1, -1)
+    assert torch.equal(torch.gather(wide16, 3, idx),
+                       gather_feature_windows(plane16, starts, 50))
+    g16 = dict(
+        ms=cuda_ms(lambda: gather_feature_windows(plane16, starts, 50), **kw),
+        plain_ms=cuda_ms(lambda: gather_feature_windows_plain(
+            plane16, starts, 50), **kw),
+        bound_ms=b16_ms, bound_by=b16_by,
+        library_ms=cuda_ms(lambda: torch.gather(wide16, 3, idx), **kw),
+        device_us=device_us(lambda: gather_feature_windows(
+            plane16, starts, 50), "gather_staged"),
+        library_device_us=device_us(lambda: torch.gather(wide16, 3, idx)))
+    g16["share_of_bound"] = b16_ms * 1e3 / g16["device_us"]
+    emit("timing", kernel="gather_feature_windows", dtype="bfloat16", C=24,
+         H4=40, Wq=3019, n_cols=50, N=len(starts), **g16)
     # the kernels line reports each kernel at the main path's shape: Q = 100
     # excerpts x the 60-piece gallery (12,000 rows), k = 25; one strip
     return {"topk_gallery": dict(max_abs_err=topk_err,
@@ -603,7 +649,7 @@ def phase_serving(torch):
     torch.cuda.synchronize()
 
     zero_launches()
-    run = {}
+    run, build_s_of = {}, {}
     for arm, fullconv in (("exact", False), ("fullconv", True)):
         t0 = time.perf_counter()
         gal = accuracy.build_piece_gallery(params, cfg, images, coords=coords,
@@ -615,6 +661,7 @@ def phase_serving(torch):
             queries_per_piece=1, excerpts_per_query=100, quantize=16,
             gallery=gal, device=dev)
         run[arm] = (gal, acc)
+        build_s_of[arm] = build_s
         emit("main_path" if arm == "exact" else "fullconv", arm=arm,
              gallery_rows=gal.n, build_s=build_s,
              sheet_emb_per_s=gal.n / build_s, rank1=acc["rank1"],
@@ -686,7 +733,12 @@ def phase_serving(torch):
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
     ctx = dict(dev=dev, cfg=cfg, params=params, ckpt=ckpt, images=images,
-               specs=specs, gallery=exact_gal)
+               specs=specs, coords=coords, gallery=exact_gal,
+               galleries={arm: g for arm, (g, _) in run.items()},
+               serving={arm: dict(emb_per_s=g.n / build_s_of[arm],
+                                  rank1=a["rank1"],
+                                  ranks=a["ranks"], query_p50_ms=a["p50_ms"])
+                        for arm, (g, a) in run.items()})
     return ctx, launches
 
 
@@ -787,6 +839,10 @@ def phase_s2a(torch, ctx):
          query_p50_ms=float(np.percentile(lat, 50) * 1000),
          plain_replay_ranks_equal=True, launches=launches)
     assert rank1 >= JAX_S2A_RANK1 - 1, (rank1, JAX_S2A_RANK1)
+    ctx["s2a"] = dict(rank1=rank1, rank5=rank5,
+                      audio_emb_per_s=gal.n / build_s,
+                      query_p50_ms=float(np.percentile(lat, 50) * 1000))
+    ctx["s2a_codes"] = gal.gallery_n   # phase 13b's float32 control
     return launches
 
 
@@ -1242,13 +1298,15 @@ def valid_npz(tmp, pieces):
     return split
 
 
-def learning_fit(torch, ctx, data, iters, count):
+def learning_fit(torch, ctx, data, iters, count,
+                 run_eval_atol=FIT_MRR_ATOL):
     """A full-width ``fit`` of ``TRAIN_EPOCHS`` epochs over ``data`` with
     the iterators ``iters``, held to the learning criteria: train loss
     falls, validation MRR rises above epoch 1's and above twice chance, no
     NaN, kernel 1 launched at least twice an epoch; the last evaluation's
     ranks through kernel 1 equal the full argsort's, and the dump read back
-    by ``run_eval`` gives the MRR ``fit`` reported -> the fit's record."""
+    by ``run_eval`` gives the MRR ``fit`` reported (within
+    ``run_eval_atol``) -> the fit's record."""
     from audio_sheet_retrieval_tpu_torch.cli import run_eval
     from audio_sheet_retrieval_tpu_torch.data import synthetic
     from audio_sheet_retrieval_tpu_torch.models import cca_model
@@ -1304,7 +1362,7 @@ def learning_fit(torch, ctx, data, iters, count):
         ev = count(lambda: run_eval.main(
             ["--data", "npz:" + tmp, "--train_split", split, "--n_test",
              str(n_va), "--param_file", dump, "--device", str(dev)]))
-        assert abs(ev["map"] - best_map) <= FIT_MRR_ATOL, (ev, best_map)
+        assert abs(ev["map"] - best_map) <= run_eval_atol, (ev, best_map)
     return dict(epochs=recs, best_map=best_map, chance_mrr=chance,
                 run_eval_map=ev["map"], max_memory_allocated_mb=peak_mb,
                 eval_ranks=rank_check, launches=launches)
@@ -1434,6 +1492,7 @@ def phase_train(torch, ctx):
     small = synthetic.load_synthetic_retrieval(
         n_train=1, n_valid=1, n_test=1, n_onsets=120, augment=augment)
     x1, x2 = small["train"][0:cfg.batch_size]
+    ctx["step_batch"] = (x1, x2)
     step_err = {w: step_card_vs_cpu(
         torch, dataclasses.replace(cfg, whitening=w), tree, x1, x2, dev)
         for w in ("polar", "eigh")}
@@ -1508,6 +1567,7 @@ def phase_train(torch, ctx):
               max_abs_err=err)
     emit("timing", kernel="topk_gallery", case="training evaluation",
          Q=1000, N=1000, d=32, k=25, **k1)
+    ctx["f32_step"] = numbers["polar"]
     emit("train", check="numbers", step=numbers,
          fit_epochs=fit_numbers(host["epochs"]),
          fit_max_memory_allocated_mb=host["max_memory_allocated_mb"],
@@ -1618,6 +1678,7 @@ def phase_device_pool(torch, ctx):
          **fit)
 
     # c. numbers, beside the host iterator's fit of phase 11
+    ctx["pool_fit"] = fit
     emit("device_pool", check="numbers",
          device_pool=fit_numbers(fit["epochs"]),
          host_iterator=fit_numbers(ctx["host_fit"]["epochs"]),
@@ -1647,6 +1708,401 @@ def phase_device_pool(torch, ctx):
     assert launches["topk_gallery"] > 0, "the device pool ran no top-k kernel"
     return launches
 
+# --- phase 13: the precision ladder ---------------------------------------------
+
+# sheet -> audio rank<=1 of the JAX package itself in bfloat16 on phase 7's
+# corpus and checkpoint, as JAX_S2A_RANK1 in float32:
+# scripts/jax_s2a_rank1.py (its fused sheet query), run once on the CPU
+# with jax 0.9.0 (rank<=5 37; float32 19 and 40, as above)
+JAX_S2A_RANK1_BF16 = 20
+HIGH_CONV_ERR_RATIO = 4.0  # high's conv error from float64 over f32's
+HIGH_CODES_ATOL = 1e-5     # high's gallery codes against highest's
+# bf16 codes against float32's of the same build: farther than this, ten
+# times HIGH_CODES_ATOL, or the build ran float32 (a bf16 build reads
+# 1e-3 or more; float32 reorderings 1e-5 or less)
+BF16_CODES_MIN_DIFF = 1e-4
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_GRAD_RATIO = 2.0  # card's gradient distance from float64 / CPU's
+# the card's bf16 gradient distance from float64 over its float32 step's:
+# more than this, or the step ran float32 (tests/test_torch_precision.py
+# holds the CPU step to the same)
+BF16_STEP_OVER_F32 = 10.0
+# run_eval re-embeds the bf16-trained dump in float32 (its CLI, like the
+# JAX package's, takes no dtype) where fit evaluated it in bf16: other
+# codes, other near-ties (8.0e-4 apart at MRR 0.096 on an H100)
+BF16_RUN_EVAL_MRR_ATOL = 1e-2
+
+
+def top1_details(torch, params, cfg, gallery, specs, n_pieces):
+    """Phase 4's queries (one 100-excerpt query a piece, u16 spectrogram)
+    -> (each query's top-1 piece: the most votes, the lowest index on a
+    tie; each excerpt's nearest gallery row), host arrays."""
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+    from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
+        embed_spec_excerpts,
+    )
+
+    tops, nearest = [], []
+    for payload, scale, starts in accuracy.query_payloads(cfg, specs, 1, 100,
+                                                          16):
+        payload = torch.from_numpy(payload).to(gallery.device)
+        for st in starts:
+            codes = embed_spec_excerpts(params, cfg, payload, scale, st, True)
+            _, idx = topk_gallery(codes.contiguous(), gallery.gallery_n, 25)
+            counts = torch.bincount(gallery.ids_device[idx].reshape(-1),
+                                    minlength=n_pieces)[:n_pieces]
+            tops.append(int(counts.argmax()))
+            nearest.append(idx[:, 0].cpu().numpy())
+    return np.array(tops), np.concatenate(nearest)
+
+
+def block_inputs(torch, enc_mod, x):
+    """The input of each block of an eval encoder on the batch ``x``
+    (float32)."""
+    from audio_sheet_retrieval_tpu_torch.models import encoder
+
+    out, h = [], x
+    with torch.no_grad():
+        for i in range(encoder.N_CONV_BLOCKS):
+            out.append(h)
+            h = enc_mod.block(i, h)
+            if encoder.pools_after(i):
+                h = encoder.maxpool2(h)
+    return out
+
+
+def piece0_batches(torch, ctx):
+    """Piece 0's real encoder batches: its gallery windows as the sheet
+    build embeds them, prepared, and its audio-DB excerpts (stride 10)."""
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+    from audio_sheet_retrieval_tpu_torch.train.engine import (
+        prepare_view1_device,
+    )
+
+    dev, cfg = ctx["dev"], ctx["cfg"]
+    im, sp = ctx["images"][0], ctx["specs"][0]
+    st = accuracy.gallery_starts(cfg, [im], ctx["coords"][:1])[0]
+    r0 = im.shape[0] // 2 - 80
+    wins = np.stack([im[r0:r0 + 160, s:s + 200] for s in st])[:, None]
+    x1 = prepare_view1_device(torch.from_numpy(wins).to(dev), cfg)
+    x2 = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [sp[:, s:s + 42] for s in range(0, sp.shape[1] - 42, 10)])[:, None]
+    )).to(dev)
+    return x1, x2
+
+
+def high_conv_errors(torch, ctx, mode):
+    """Each block's conv of both views on its real inputs (piece 0's
+    batches), float32 highest and ``high`` (the block run in ``mode``,
+    what ``check_numerics`` maps ``high`` onto) against float64 on the
+    card: the largest error over the largest output -> rows (raises past
+    HIGH_CONV_ERR_RATIO)."""
+    import torch.nn.functional as F
+
+    params = ctx["params"]
+    x1, x2 = piece0_batches(torch, ctx)
+    rows = []
+    with torch.no_grad():
+        for view, e, x in (("view1", params.view1, x1),
+                           ("view2", params.view2, x2)):
+            for i, h in enumerate(block_inputs(torch, e, x)):
+                blk = e.blocks[i]
+                pad = blk.w.shape[-1] // 2
+                ref = F.conv2d(h.double(), blk.w.double(), blk.b.double(),
+                               padding=pad)
+                top = float(ref.abs().max())
+
+                def err(out):
+                    return float((out.double() - ref).abs().max()) / top
+
+                row = dict(view=view, block=i, input=list(h.shape),
+                           highest=err(F.conv2d(h, blk.w, blk.b,
+                                                padding=pad)),
+                           high=err(blk(h, mode)))
+                row["ratio"] = row["high"] / row["highest"]
+                rows.append(row)
+    assert not torch.backends.cudnn.allow_tf32
+    worst = max(r["ratio"] for r in rows)
+    assert worst <= HIGH_CONV_ERR_RATIO, rows
+    return rows
+
+
+def relative_l2(a, b) -> float:
+    """||a - b|| / ||b|| over lists of arrays (a whole gradient)."""
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+    return float(np.sqrt(num / sum(float((y ** 2).sum()) for y in b)))
+
+
+def device_busy_ms(torch, fn, n: int) -> float:
+    """Device busy time a call of ``fn`` (torch.profiler over ``n`` calls:
+    the union of the intervals of every device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert spans, "the profiler recorded no device activity"
+    busy, (cs, ce) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > ce:
+            busy, cs, ce = busy + ce - cs, a, b
+        else:
+            ce = max(ce, b)
+    return (busy + ce - cs) / 1000.0 / n
+
+
+def phase_precision(torch, ctx):
+    """13. The JAX package's bf16 and ``high`` numerics on phase 4's corpus
+    and checkpoint at full width: a. bf16 builds in the JAX bench's three
+    serving arms, b. bf16 sheet -> audio, c. ``high``, d. bf16 training."""
+    from audio_sheet_retrieval_tpu_torch.data import device_pool as dp
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+    from audio_sheet_retrieval_tpu_torch.retrieval.server import (
+        AudioSheetServer,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        RetrievalWrapper,
+    )
+    from audio_sheet_retrieval_tpu_torch.train import engine
+    from audio_sheet_retrieval_tpu_torch.train import state as ts
+
+    dev, cfg, params = ctx["dev"], ctx["cfg"], ctx["params"]
+    images, specs, coords = ctx["images"], ctx["specs"], ctx["coords"]
+    n_pieces = len(images)
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    cfg_high = dataclasses.replace(cfg, conv_precision="high")
+    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
+    count = launch_counter(launches)
+    acc_kw = dict(coords=coords, n_candidates=25, queries_per_piece=1,
+                  excerpts_per_query=100, quantize=16, device=dev)
+
+    # a. bf16 builds in the JAX bench's serving arms (bench.py:713-721),
+    # each beside the float32 build of its arm (phase 4's exact and
+    # fullconv galleries; gather_half's built here)
+    arms = {"exact": {}, "gather_half": dict(gather_half=True),
+            "fullconv": dict(fullconv=True)}
+    f32_gals = dict(ctx["galleries"], gather_half=count(
+        lambda: accuracy.build_piece_gallery(params, cfg, images,
+                                             coords=coords, device=dev,
+                                             gather_half=True)))
+    f32_top = {arm: count(lambda: top1_details(torch, params, cfg, g, specs,
+                                               n_pieces))
+               for arm, g in f32_gals.items()}
+    for kw in arms.values():     # warm-up: cuDNN's bf16 plans
+        accuracy.build_piece_gallery(params, cfg16, images[:1],
+                                     coords=coords[:1], device=dev, **kw)
+    torch.cuda.synchronize()
+    # kernel 2's launches in the bf16 builds are kept for the check below
+    # (the wrapper appends each launch to its ``recorded`` list)
+    recorded = []
+
+    def build(kw):
+        win.gather_feature_windows.recorded = recorded
+        try:
+            return accuracy.build_piece_gallery(params, cfg16, images,
+                                                coords=coords, device=dev,
+                                                **kw)
+        finally:
+            win.gather_feature_windows.recorded = None
+
+    bf16 = {}
+    for arm, kw in arms.items():
+        t0 = time.perf_counter()
+        gal = count(lambda: build(kw))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        acc = count(lambda: accuracy.piece_id_accuracy(
+            params, cfg16, images, specs, gallery=gal, **acc_kw))
+        top, near = count(lambda: top1_details(torch, params, cfg16, gal,
+                                               specs, n_pieces))
+        f32 = ctx["serving"].get(arm, {})
+        assert gal.gallery_n.shape == f32_gals[arm].gallery_n.shape, arm
+        bf16[arm] = dict(
+            codes_max_abs_diff_f32=float((gal.gallery_n - f32_gals[arm]
+                                          .gallery_n).abs().max()),
+            gallery_rows=gal.n, build_s=build_s,
+            sheet_emb_per_s=gal.n / build_s, rank1=acc["rank1"],
+            rank5=acc["rank5"], n=acc["n"], query_p50_ms=acc["p50_ms"],
+            piece_top1_equal_f32=int((top == f32_top[arm][0]).sum()),
+            excerpt_top1_share_equal_f32=float(
+                (near == f32_top[arm][1]).mean()),
+            f32_sheet_emb_per_s=f32.get("emb_per_s"),
+            f32_query_p50_ms=f32.get("query_p50_ms"))
+        emit("precision", check="a. bf16 build", arm=arm, **bf16[arm])
+    for arm, row in bf16.items():    # >= 59 of 60 each
+        assert row["n"] == n_pieces and row["rank1"] >= n_pieces - 1, \
+            (arm, row)
+        assert row["piece_top1_equal_f32"] >= n_pieces - 1, (arm, row)
+        # the build ran bf16, not float32 on the quiet
+        assert row["codes_max_abs_diff_f32"] > BF16_CODES_MIN_DIFF, (arm, row)
+    # kernel 2 ran its bf16 path in the fullconv build, each launch
+    # bit-identical to the plain version on the same plane
+    assert len(recorded) == n_pieces, len(recorded)
+    for plane, starts, n_cols, out in recorded:
+        assert plane.dtype == out.dtype == torch.bfloat16
+        assert torch.equal(out, win.gather_feature_windows_plain(
+            plane, starts, n_cols)), "bf16 gather differs"
+    emit("precision", check="a. kernel 2 in bf16", launches=len(recorded),
+         bit_identical_to_plain=True, plane=list(recorded[0][0].shape))
+    del recorded
+
+    # b. bf16 sheet -> audio
+    names = ["piece_%03d" % p for p in range(n_pieces)]
+    srv = AudioSheetServer(device=dev)
+    srv.initialize_embedding_network(RetrievalWrapper(cfg16, params=params,
+                                                      device=dev))
+    srv.initialize_audio_db_from_specs_device(names[:2], specs[:2])  # warm
+    srv.detect_performance_from_sheet(images[0], top_k=2, n_candidates=25)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count(lambda: srv.initialize_audio_db_from_specs_device(names, specs))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ranks, lat = [], []
+
+    def queries():
+        for p, name in enumerate(names):
+            t0 = time.perf_counter()
+            result, votes = srv.detect_performance_from_sheet(
+                images[p], top_k=n_pieces, n_candidates=25)
+            lat.append(time.perf_counter() - t0)
+            ranks.append(pessimistic_rank(dict(zip(result, votes)), names,
+                                          name))
+
+    count(queries)
+    audio_codes = srv._audio_gallery.gallery_n
+    assert audio_codes.shape == ctx["s2a_codes"].shape
+    s2a = dict(codes_max_abs_diff_f32=float((audio_codes - ctx["s2a_codes"])
+                                            .abs().max()),
+               audio_rows=srv._audio_gallery.n, build_s=build_s,
+               audio_emb_per_s=srv._audio_gallery.n / build_s,
+               rank1=sum(r <= 1 for r in ranks),
+               rank5=sum(r <= 5 for r in ranks), n=len(ranks),
+               query_p50_ms=float(np.percentile(lat, 50) * 1000),
+               jax_cpu_rank1_bf16=JAX_S2A_RANK1_BF16, f32=ctx["s2a"])
+    emit("precision", check="b. bf16 sheet -> audio", **s2a)
+    assert s2a["rank1"] >= JAX_S2A_RANK1_BF16 - 1, s2a
+    assert s2a["codes_max_abs_diff_f32"] > BF16_CODES_MIN_DIFF, s2a
+
+    # c. high: each block's conv against float64, the codes and ranks
+    # against highest's, no TF32 left behind
+    conv_rows = high_conv_errors(torch, ctx,
+                                 cca_model.check_numerics(cfg_high))
+    emit("precision", check="c. high conv error vs float64",
+         worst_ratio=max(r["ratio"] for r in conv_rows), blocks=conv_rows)
+    x1 = torch.from_numpy(np.stack([images[0][20:180, s:s + 200] for s in
+                                    np.linspace(0, images[0].shape[1] - 200,
+                                                20).astype(int)])[:, None]
+                          ).to(dev)
+    x2 = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [specs[0][:, s:s + 42] for s in np.linspace(
+            0, specs[0].shape[1] - 42, 20).astype(int)])[:, None])).to(dev)
+    before = engine.make_eval_fns(cfg)[0](params, x1, x2)
+    engine.make_eval_fns(cfg_high)[0](params, x1, x2)
+    after = engine.make_eval_fns(cfg)[0](params, x1, x2)
+    assert all(torch.equal(a, b) for a, b in zip(before, after)), "TF32 leak"
+    assert not torch.backends.cudnn.allow_tf32
+    accuracy.build_piece_gallery(params, cfg_high, images[:1],
+                                 coords=coords[:1], device=dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gal = count(lambda: accuracy.build_piece_gallery(
+        params, cfg_high, images, coords=coords, device=dev))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    acc = count(lambda: accuracy.piece_id_accuracy(
+        params, cfg_high, images, specs, gallery=gal, **acc_kw))
+    codes_err = float((gal.gallery_n - ctx["gallery"].gallery_n).abs().max())
+    high = dict(gallery_rows=gal.n, build_s=build_s,
+                sheet_emb_per_s=gal.n / build_s,
+                f32_sheet_emb_per_s=ctx["serving"]["exact"]["emb_per_s"],
+                codes_max_abs_err_vs_highest=codes_err, rank1=acc["rank1"],
+                ranks_equal_highest=acc["ranks"]
+                == ctx["serving"]["exact"]["ranks"],
+                query_p50_ms=acc["p50_ms"], f32_forward_after_high_equal=True)
+    emit("precision", check="c. high", **high)
+    assert codes_err <= HIGH_CODES_ATOL, high
+    assert high["ranks_equal_highest"], high
+
+    # d. bf16 training: one step card vs CPU vs float64, a fit over device
+    # pools at phase 12's settings, the numbers beside float32's
+    tree = lasagne_import.train_params_to_numpy(cca_model.init_model(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    x1s, x2s = ctx["step_batch"]
+    card = one_step(torch, cfg16, tree, x1s, x2s, dev, torch.float32)
+    cpu = one_step(torch, cfg16, tree, x1s, x2s, "cpu", torch.float32)
+    f64 = one_step(torch, cfg, tree, x1s, x2s, dev, torch.float64)
+    card32 = one_step(torch, cfg, tree, x1s, x2s, dev, torch.float32)
+    step = dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+                loss_float64=f64["loss"],
+                loss_rel_card_vs_cpu=abs(card["loss"] - cpu["loss"])
+                / abs(cpu["loss"]),
+                grad_rel_l2_card_vs_float64=relative_l2(card["grads"],
+                                                        f64["grads"]),
+                grad_rel_l2_cpu_vs_float64=relative_l2(cpu["grads"],
+                                                       f64["grads"]),
+                f32_grad_rel_l2_card_vs_float64=relative_l2(card32["grads"],
+                                                            f64["grads"]))
+    emit("precision", check="d. one bf16 step, card vs cpu vs float64",
+         batch=cfg.batch_size, **step)
+    assert step["loss_rel_card_vs_cpu"] <= BF16_STEP_LOSS_RTOL, step
+    assert step["grad_rel_l2_card_vs_float64"] <= BF16_STEP_GRAD_RATIO * \
+        step["grad_rel_l2_cpu_vs_float64"], step
+    # the step ran bf16, not float32 on the quiet
+    assert step["grad_rel_l2_card_vs_float64"] > BF16_STEP_OVER_F32 * \
+        step["f32_grad_rel_l2_card_vs_float64"], step
+
+    def lift(data, seed):
+        return dict(data, train=dp.from_host_pool(
+            data["train"], rng=np.random.default_rng(seed), device=dev),
+            valid=dp.from_host_pool(data["valid"], shuffle=False,
+                                    rng=np.random.default_rng(seed + 1),
+                                    device=dev))
+
+    fit = learning_fit(torch, dict(ctx, cfg=cfg16), lift(ctx["train_data"],
+                                                         23), (
+        dp.DeviceBatchIterator(cfg.batch_size, k_samples=cfg.k_samples),
+        dp.DeviceBatchIterator(cfg.batch_size, shuffle=False, train=False)),
+        count, run_eval_atol=BF16_RUN_EVAL_MRR_ATOL)
+    assert {r["data"] for r in fit["epochs"]} == {"device pool"}
+    x1d = torch.from_numpy(x1s).to(dev)
+    x2d = torch.from_numpy(x2s).to(dev)
+    numbers = {}
+    for name, c in (("bfloat16", cfg16), ("float32", cfg)):
+        state = ts.init_train_state(lasagne_import.train_params_from_numpy(
+            tree, c, device=dev), c)
+        train_step = engine.make_train_step(c)
+        torch.cuda.reset_peak_memory_stats()
+        numbers[name] = dict(
+            step_ms=cuda_ms(lambda: train_step(state, x1d, x2d), iters=20,
+                            warmup=5),
+            device_busy_ms_per_step=device_busy_ms(
+                torch, lambda: train_step(state, x1d, x2d), 5),
+            max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+            / 2**20)
+    emit("precision", check="d. bf16 training", fit=fit,
+         fit_epochs=fit_numbers(fit["epochs"]),
+         f32_fit_epochs=fit_numbers(ctx["pool_fit"]["epochs"]),
+         fit_max_memory_allocated_mb=dict(
+             bfloat16=fit["max_memory_allocated_mb"],
+             float32=ctx["pool_fit"]["max_memory_allocated_mb"]),
+         step=numbers, f32_step_phase11=ctx["f32_step"], launches=launches)
+    assert launches["topk_gallery"] > 0 and \
+        launches["gather_feature_windows"] > 0, launches
+    assert not torch.backends.cudnn.allow_tf32
+    return launches
+
 
 def main() -> int:
     torch = require_cuda()
@@ -1655,7 +2111,8 @@ def main() -> int:
     kernel_stats = phase_kernels(torch)
     ctx, launches = phase_serving(torch)
     for phase in (phase_s2a, phase_streaming, phase_audio,
-                  phase_eval_refine, phase_train, phase_device_pool):
+                  phase_eval_refine, phase_train, phase_device_pool,
+                  phase_precision):
         for name, n in phase(torch, ctx).items():
             launches[name] += n
     rows = []

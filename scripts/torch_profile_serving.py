@@ -2,19 +2,24 @@
 """Where the time goes on the PyTorch port's serving path, on one CUDA card.
 
     python scripts/torch_profile_serving.py [--out PATH] [--queries N]
+        [--compute_dtype float32|bfloat16] [--conv_precision highest|high]
 
 The setting is chip_smoke.py's main path: the vendored synthetic-corpus
-serving checkpoint at full width (``mutopia_ccal_cont_rsz``, float32, TF32
-off), the 60-piece synthetic corpus with onset-aligned windows (about
-12,000 gallery rows), 100-excerpt piece-ID queries with 25 candidates.
+serving checkpoint at full width (``mutopia_ccal_cont_rsz``; float32 with
+TF32 off by default, or the numerics given), the 60-piece synthetic corpus
+with onset-aligned windows (about 12,000 gallery rows), 100-excerpt
+piece-ID queries with 25 candidates.
 
-Five windows run under ``torch.profiler`` (CPU + CUDA activities), after a
-warm-up: the exact gallery build, the fullconv gallery build, ``--queries``
-piece-ID queries (audio -> sheet, spectrogram upload), ``--queries``
-sheet -> audio queries (raw strip upload, against the corpus's audio DB
-built on the card) and ``--stream_frames`` frames of streaming in chunks
-of 8 (``StreamingRetriever.push_frames`` against the exact gallery). For
-each window it reports
+Six windows run under ``torch.profiler`` (CPU + CUDA activities), after a
+warm-up: the gallery build in each of the JAX bench's three arms (exact,
+``gather_half``: windows cut from the strip's half plane, and fullconv),
+``--queries`` piece-ID queries (audio -> sheet, spectrogram upload)
+against the serving gallery (the exact build in float32, the
+``gather_half`` build in bfloat16, as the JAX bench serves bf16: its
+bench.py:714-719), ``--queries`` sheet -> audio queries (raw strip upload,
+against the corpus's audio DB built on the card) and ``--stream_frames``
+frames of streaming in chunks of 8 (``StreamingRetriever.push_frames``
+against the serving gallery). For each window it reports
 
 - ``wall_ms``: host clock from the window's start to a synchronise at its
   end (the profiler's own host overhead included);
@@ -32,14 +37,15 @@ downloaded counts, the ``p50_ms`` of ``retrieval.accuracy``), and the
 unprofiled p50 of a sheet -> audio query and of a chunk-8 push.
 
 Each window prints one JSON line; the whole result goes to ``--out``
-(default ``build/profile/profile_serving.json``). Without a CUDA card the
-script exits non-zero.
+(default ``build/profile/profile_serving_<dtype>_<precision>.json``).
+Without a CUDA card the script exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import os
 import subprocess
@@ -99,11 +105,17 @@ def profiled(fn) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "build", "profile", "profile_serving.json"))
+    ap.add_argument("--out", default=None)
     ap.add_argument("--queries", type=int, default=60)
     ap.add_argument("--stream_frames", type=int, default=400)
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--conv_precision", default="highest",
+                    choices=["highest", "high"])
     args = ap.parse_args(argv)
+    out = args.out or os.path.join(
+        REPO, "build", "profile", "profile_serving_%s_%s.json"
+        % (args.compute_dtype, args.conv_precision))
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is false; this profile "
                          "runs only on a CUDA card")
@@ -134,7 +146,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    cfg = get_model_config("mutopia_ccal_cont_rsz")
+    cfg = dataclasses.replace(get_model_config("mutopia_ccal_cont_rsz"),
+                              compute_dtype=args.compute_dtype,
+                              conv_precision=args.conv_precision)
     params = load_any_checkpoint(assets.asset_path("synth_serving_ckpt.pkl"),
                                  cfg, device=dev)
     images, specs, o2cs = synthetic.make_piece_list(
@@ -142,16 +156,23 @@ def main(argv=None) -> int:
     specs = [sp[0] for sp in specs]
     coords = [oc[0][:, 1] for oc in o2cs]
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "torch": torch.__version__, "cuda": torch.version.cuda}
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "compute_dtype": cfg.compute_dtype,
+              "conv_precision": cfg.conv_precision}
+    arms = {"exact": {}, "gather_half": dict(gather_half=True),
+            "fullconv": dict(fullconv=True)}
+    serving_arm = ("gather_half" if cfg.compute_dtype == "bfloat16"
+                   else "exact")
+    result["serving_arm"] = serving_arm
 
-    def build(fullconv):
+    def build(arm):
         return accuracy.build_piece_gallery(params, cfg, images,
-                                            coords=coords, fullconv=fullconv,
-                                            device=dev)
+                                            coords=coords, device=dev,
+                                            **arms[arm])
 
-    for fullconv in (False, True):  # warm-up: cuDNN plans, kernel builds
-        build(fullconv)
-    gallery = build(False)
+    for arm in arms:  # warm-up: cuDNN plans, kernel builds
+        build(arm)
+    gallery = build(serving_arm)
     payloads = list(accuracy.query_payloads(cfg, specs, 1, 100, 16))
     query = make_fused_piece_query_spec(params, cfg, gallery, len(images),
                                         n_candidates=25)
@@ -160,8 +181,8 @@ def main(argv=None) -> int:
     for payload, scale, st in jobs[:5]:
         query(payload, scale, st).cpu()
 
-    result["build_exact"] = profiled(lambda: build(False))
-    result["build_fullconv"] = profiled(lambda: build(True))
+    for arm in arms:
+        result["build_" + arm] = profiled(lambda: build(arm))
 
     def run_queries():
         for payload, scale, st in jobs:
@@ -198,7 +219,7 @@ def main(argv=None) -> int:
     q["per_query_device_busy_ms"] = q["device_busy_ms"] / len(strips)
     result["s2a_queries"] = q
 
-    # streaming, chunks of 8 frames against the exact gallery
+    # streaming, chunks of 8 frames against the serving gallery
     stream = StreamingRetriever(params, cfg, gallery.gallery_n, gallery.ids,
                                 n_candidates=25,
                                 spec_max=float(specs[0].sum(axis=0).max()),
@@ -216,8 +237,8 @@ def main(argv=None) -> int:
     q["per_push_wall_ms"] = q["wall_ms"] / n_push
     q["per_push_device_busy_ms"] = q["device_busy_ms"] / n_push
     result["stream_chunk8"] = q
-    for name in ("build_exact", "build_fullconv", "queries", "s2a_queries",
-                 "stream_chunk8"):
+    for name in ("build_exact", "build_gather_half", "build_fullconv",
+                 "queries", "s2a_queries", "stream_chunk8"):
         print(name, json.dumps(result[name]), flush=True)
 
     # per-stage host clock of one query, synchronised between stages
@@ -273,8 +294,8 @@ def main(argv=None) -> int:
           "stream_push8_p50_ms_unprofiled",
           result["stream_push8_p50_ms_unprofiled"])
     print(smi)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as fp:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fp:
         json.dump(result, fp, indent=1)
     return 0
 

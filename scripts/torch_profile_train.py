@@ -2,12 +2,15 @@
 """Where the time of one train step goes on the PyTorch port, on one CUDA card.
 
     python scripts/torch_profile_train.py [--out PATH] [--steps N]
+        [--compute_dtype float32|bfloat16] [--conv_precision highest|high]
 
 The setting is chip_smoke.py's phase 11: ``mutopia_ccal_cont_rsz`` at full
 width (24 filters, 32-D latent, sheet 160 x 200 halved, spectrogram
-92 x 42), batch 100, float32 with TF32 off, a seeded init, one batch of the
-synthetic corpus with the FULL augmentation of
-``exp_configs/mutopia_full_aug.yaml``. After a warm-up it reports
+92 x 42), batch 100, a seeded init, one batch of the synthetic corpus with
+the FULL augmentation of ``exp_configs/mutopia_full_aug.yaml``, under the
+numerics given (float32 with TF32 off by default; bf16 convolutions with
+``--compute_dtype bfloat16``, as phase 13 trains). After a warm-up it
+reports
 
 - ``step``: the median CUDA-event time of one step (batch already on the
   card), for the polar whitening (the default) and for ``eigh``;
@@ -27,8 +30,8 @@ synthetic corpus with the FULL augmentation of
 - ``max_memory_allocated_mb`` over a step.
 
 Each part prints one JSON line; the whole result goes to ``--out``
-(default ``build/profile/profile_train.json``). Without a CUDA card the
-script exits non-zero.
+(default ``build/profile/profile_train_<dtype>_<precision>.json``).
+Without a CUDA card the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -129,10 +132,16 @@ def by_kind(prof, n_steps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "build", "profile", "profile_train.json"))
+    ap.add_argument("--out", default=None)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--conv_precision", default="highest",
+                    choices=["highest", "high"])
     args = ap.parse_args(argv)
+    out = args.out or os.path.join(
+        REPO, "build", "profile", "profile_train_%s_%s.json"
+        % (args.compute_dtype, args.conv_precision))
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is false; this profile "
                          "runs only on a CUDA card")
@@ -151,14 +160,17 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    cfg = get_model_config("mutopia_ccal_cont_rsz")
+    cfg = dataclasses.replace(get_model_config("mutopia_ccal_cont_rsz"),
+                              compute_dtype=args.compute_dtype,
+                              conv_precision=args.conv_precision)
     augment = config.load_experiment_config("mutopia_full_aug").augment
     pool = synthetic.load_synthetic_retrieval(
         n_train=6, n_valid=1, n_test=1, n_onsets=200,
         augment=augment)["train"]
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda,
-              "batch": cfg.batch_size}
+              "batch": cfg.batch_size, "compute_dtype": cfg.compute_dtype,
+              "conv_precision": cfg.conv_precision}
 
     def emit(part, **fields):
         result[part] = fields
@@ -226,8 +238,8 @@ def main(argv=None) -> int:
         emit("whitening_" + w, ms=ms, kernels=kernels_launched(p2),
              share_of_step=ms / result["step_" + w]["step_ms"])
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as fp:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as fp:
         json.dump(result, fp, indent=1)
     print(smi)
     return 0

@@ -85,9 +85,14 @@ def test_run_eval_parser_and_unported_modes(tmp_path):
     assert {a.dest for a in trefine.build_arg_parser()._actions} == \
         {a.dest for a in jrefine.build_arg_parser()._actions} | {"device"}
     common = ["--param_file", SYNTH_CKPT, "--device", "cpu", "--n_test", "10"]
-    with pytest.raises(NotImplementedError, match="conv_precision"):
+    # --conv_precision high runs, as the JAX CLI does (float32 on both
+    # CPUs); "default" is not ported and says so
+    high = ["--data", "synthetic", "--conv_precision", "high"]
+    assert_results_close(teval.main(common + high), jeval.main(
+        ["--param_file", SYNTH_CKPT, "--n_test", "10"] + high), n_test=10)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         teval.main(common + ["--data", "synthetic", "--conv_precision",
-                             "high"])
+                             "default"])
     with pytest.raises(NotImplementedError, match="msmd"):
         teval.main(common + ["--data", "mutopia", "--train_split", "s.yaml"])
     with pytest.raises(NotImplementedError, match="msmd"):

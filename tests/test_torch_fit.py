@@ -72,14 +72,15 @@ def parity_data(mod):
                                         seed=7, n_onsets=60)
 
 
-def parity_runs(tmp_path, data_of, iterators_of):
-    """Both packages' ``fit`` from one numpy tree at ``PARITY``:
+def parity_runs(tmp_path, data_of, iterators_of, **numerics):
+    """Both packages' ``fit`` from one numpy tree at ``PARITY`` (and the
+    config's ``numerics``, e.g. ``compute_dtype="bfloat16"``):
     ``data_of(synthetic module, package's device_pool module, port
     keywords)`` and ``iterators_of(package's iterators module, package's
     device_pool module)`` -> {"jax" | "port": (epoch records, best MRR,
     curves, best params)}."""
-    jcfg = jcfg_of("mutopia_ccal_cont_rsz", **PARITY)
-    cfg = get_model_config("mutopia_ccal_cont_rsz", **PARITY)
+    jcfg = jcfg_of("mutopia_ccal_cont_rsz", **PARITY, **numerics)
+    cfg = get_model_config("mutopia_ccal_cont_rsz", **PARITY, **numerics)
     tree = tli.train_params_to_numpy(tcm.init_model(
         torch.Generator().manual_seed(0), cfg, device="cpu"))
     jtree = jcm.ModelParams(tree.view1, tree.view2, jcca.CCAState(*tree.cca))
@@ -369,12 +370,14 @@ def tiny_model(monkeypatch):
     return cfg
 
 
-def test_run_train_cli_resume_and_architecture(tiny_model, tmp_path, capsys):
+def test_run_train_cli_resume_and_architecture(tiny_model, tmp_path, capsys,
+                                              monkeypatch):
     """``run_train --device cpu``: the artifacts (the dump in the JAX
     package's format), no snapshot left after a normal end, the
     architecture table, the data path each run reports (the device pool by
     default, the host iterator with ``--host_data``), ``--resume`` without
-    a snapshot continuing from the dump, and bf16 refused."""
+    a snapshot continuing from the dump, and ``--compute_dtype bfloat16``
+    training as the JAX CLI does."""
     from audio_sheet_retrieval_tpu_torch.cli import run_train
 
     assert run_train.build_arg_parser().get_default("device") == "cuda"
@@ -404,8 +407,44 @@ def test_run_train_cli_resume_and_architecture(tiny_model, tmp_path, capsys):
     run_train.main(common + ["--tag", "t2", "--no_dump"])
     assert not (d / "fit_state_t2.pkl").exists()
     assert not (d / "params_t2.pkl").exists()
-    with pytest.raises(NotImplementedError):
-        run_train.main(common + ["--compute_dtype", "bfloat16"])
+    # --compute_dtype bfloat16: both CLIs resume from this dump over the
+    # same host batches (the tiny model at lr 1e-6, where Adam's sign
+    # steps cannot pull the packages apart: see the module docstring) and
+    # record the same epoch within bf16's tolerances
+    # (tests/test_torch_precision.py): losses 1e-2; MRR 1e-2, as bf16's
+    # near-ties move single ranks of the chance-level model (0.007
+    # measured)
+    from audio_sheet_retrieval_tpu.cli import run_train as jrun_train
+    from audio_sheet_retrieval_tpu.models import configs as jconfigs
+
+    over = dict(num_filters=4, dim_latent=8, batch_size=8, k_samples=32,
+                max_epochs=1, ini_learning_rate=1e-6)
+    monkeypatch.setitem(tconfigs.MODEL_REGISTRY, "tiny_bf16",
+                        dataclasses.replace(get_model_config(
+                            "mutopia_ccal_cont_rsz", **over),
+                            name="tiny_bf16"))
+    monkeypatch.setitem(jconfigs.MODEL_REGISTRY, "tiny_bf16",
+                        dataclasses.replace(jcfg_of(
+                            "mutopia_ccal_cont_rsz", **over),
+                            name="tiny_bf16"))
+    curves = {}
+    for name, main, extra in (("port", run_train.main, ["--device", "cpu"]),
+                              ("jax", jrun_train.main, [])):
+        root = tmp_path / name
+        (root / "tiny_bf16").mkdir(parents=True)
+        (root / "tiny_bf16" / "params_t3.pkl").write_bytes(
+            (d / "params_t1.pkl").read_bytes())
+        main(["--model", "tiny_bf16", "--data", "synthetic", "--exp_root",
+              str(root), "--tag", "t3", "--resume", "--host_data",
+              "--no_dump", "--compute_dtype", "bfloat16"] + extra)
+        curves[name] = juio.load_results(
+            str(root / "tiny_bf16" / "results_t3.pkl"))
+    assert "Training data: host iterator" in capsys.readouterr().out
+    got, want = curves["port"], curves["jax"]
+    assert got["lr"] == want["lr"] == [1e-6]
+    for key in ("pred_tr_err", "pred_val_err"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-2)
+    np.testing.assert_allclose(got["map_val"], want["map_val"], atol=1e-2)
 
 
 def test_run_train_device_pool_writes_the_host_paths_artifacts(

@@ -19,6 +19,7 @@ from audio_sheet_retrieval_tpu.models import cca_model as jcca
 from audio_sheet_retrieval_tpu.models import encoder as jenc
 from audio_sheet_retrieval_tpu.models import lasagne_import as jli
 from audio_sheet_retrieval_tpu.models.configs import get_model_config
+from audio_sheet_retrieval_tpu.retrieval import wrapper as jwrapper
 from audio_sheet_retrieval_tpu.train import engine as jengine
 from audio_sheet_retrieval_tpu.utils import io as juio
 from audio_sheet_retrieval_tpu_torch.models import cca_model as tcca
@@ -129,10 +130,27 @@ def test_embed_views_and_folded_match_jax(small):
 @pytest.mark.parametrize("override", [dict(compute_dtype="bfloat16"),
                                       dict(conv_precision="high")])
 def test_unported_numerics_raise(small, override):
-    cfg, _, tparams, x1, _ = small
+    """The JAX package's bf16 and ``high`` numerics, once refused, now
+    run: ``embed_view1`` and the wrapper against the JAX package's (bf16
+    within 2e-3, ``high`` within 1e-5; ``tests/test_torch_precision.py``
+    says why). ``conv_precision="default"`` still raises, naming
+    ROADMAP."""
+    cfg, jparams, tparams, x1, x2 = small
     import dataclasses
 
-    bad = dataclasses.replace(cfg, **override)
+    c = dataclasses.replace(cfg, **override)
+    atol = 2e-3 if "compute_dtype" in override else ATOL
+    want = jcca.embed_view1(jparams, jengine.prepare_view1_device(
+        jnp.asarray(x1), c), c)
+    got = tcca.embed_view1(
+        tparams, tengine.prepare_view1_device(torch.from_numpy(x1), c), c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+    w = RetrievalWrapper(c, params=tparams, batch_size=2, device="cpu")
+    jw = jwrapper.RetrievalWrapper(c, params=jparams, batch_size=2)
+    np.testing.assert_allclose(w.compute_view_2(x2), jw.compute_view_2(x2),
+                               atol=atol)
+    bad = dataclasses.replace(c, compute_dtype="float32",
+                              conv_precision="default")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcca.embed_view1(tparams, torch.zeros(1, 1, 80, 100), bad)
     with pytest.raises(NotImplementedError):

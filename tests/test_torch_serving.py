@@ -5,6 +5,7 @@ serving checkpoint at full width (``mutopia_ccal_cont_rsz``, float32).
 Also: the port never loads jax, and chip_smoke.py refuses to run without a
 CUDA card."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -197,10 +198,11 @@ def test_cli_full_eval_matches_jax_server(synth, tmp_path):
     assert tcli.main(common[:-2] + ["--full_eval"]) == ranks_host
 
 
-def test_cli_demo_and_unported_modes(tmp_path, capsys):
+def test_cli_demo_and_unported_modes(synth, tmp_path, capsys):
     """The single-piece demo streams, through the device stream by default
-    and the host loop with --host_stream; the MSMD source and the
-    unported precisions raise."""
+    and the host loop with --host_stream; the MSMD source raises;
+    ``--conv_precision high`` gives the JAX server's ranks under the same
+    numerics, and the unported ``default`` raises."""
     common = ["--device", "cpu", "--n_test_pieces", "2", "--param_file",
               SYNTH_CKPT, "--db_file", str(tmp_path / "db.pkl"),
               "--running_frames", "50"]
@@ -210,8 +212,23 @@ def test_cli_demo_and_unported_modes(tmp_path, capsys):
     assert "Server is running at" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="msmd"):
         tcli.main(common + ["--data", "mutopia"])
-    with pytest.raises(NotImplementedError, match="conv_precision"):
-        tcli.main(common + ["--conv_precision", "high"])
+    ranks = tcli.main(common[:-2] + ["--init_sheet_db", "--full_eval",
+                                     "--conv_precision", "high"])
+    cfg = dataclasses.replace(synth["cfg"], conv_precision="high")
+    names, loader, query_spec = jcli.make_piece_source(
+        "synthetic", {"test": ["x"] * 2}, None)
+    jsrv = JaxServer()
+    jsrv.initialize_embedding_network(JaxWrapper(cfg,
+                                                 params=synth["jparams"]))
+    jsrv.initialize_sheet_db(names, loader)
+    want = []
+    for tp in names:
+        result, _ = jsrv.detect_score(query_spec(tp), top_k=3,
+                                      n_candidates=25)
+        want.append(result.index(tp) + 1 if tp in result else len(result))
+    assert [int(r) for r in ranks] == want
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.main(common + ["--conv_precision", "default"])
 
 
 def test_cli_npz_source_matches_synthetic(tmp_path):
