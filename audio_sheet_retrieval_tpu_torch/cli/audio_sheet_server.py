@@ -7,11 +7,11 @@ stream it (the device stream by default, the host loop with
 ``--host_stream``) or run the full per-piece evaluation with rank
 bookkeeping (and a retrieval_<tag>_A2S.yaml dump).
 
-Sources: ``--data synthetic`` and ``--data npz:<dir>`` (one
-``<piece>.npz`` per test piece of ``--train_split``, as
-``cli/export_msmd_npz.py`` writes them); the stored spectrograms act as
-the performance recordings. ``--data mutopia`` raises
-``NotImplementedError``: it needs the ``msmd`` package.
+Sources: ``--data synthetic``, ``--data npz:<dir>`` (one ``<piece>.npz``
+per test piece of ``--train_split``, as ``cli/export_msmd_npz.py`` writes
+them), whose stored spectrograms act as the performance recordings, and
+``--data mutopia``: the MSMD collection under ``ASR_TPU_DATA_ROOT_MSMD``
+through the ``msmd`` package, queried with the test performance's audio.
 yaml is imported only by the options that read or write yaml files.
 """
 
@@ -34,9 +34,13 @@ from audio_sheet_retrieval_tpu_torch.utils.logging import BColors
 col = BColors()
 
 
-def make_piece_source(data: str, split: dict):
+def make_piece_source(data: str, split: dict, config_file=None, *,
+                      device="cuda"):
     """-> (test piece names, loader(name) -> (image, specs, o2c_maps),
-    query_spec(name) -> full spectrogram)."""
+    query_spec(name) -> full spectrogram). ``mutopia`` reads the MSMD
+    collection under ``config.DATA_ROOT_MSMD``; its query is the test
+    performance's audio (``exp.test_synth`` of ``config_file``) through the
+    DSP chain on ``device``, or its precomputed ``_spec.npy``."""
     if data == "synthetic":
         names = ["synthetic_%03d" % i for i in range(len(split["test"]))]
         images, specs, o2cs = synthetic.make_piece_list(
@@ -53,10 +57,35 @@ def make_piece_source(data: str, split: dict):
 
         return names, loader, lambda n: loader(n)[1][0]
     if data == "mutopia":
-        raise NotImplementedError(
-            "--data mutopia is not ported (ROADMAP Queue 1): it needs the "
-            "msmd package; export the pieces with cli/export_msmd_npz.py "
-            "and pass --data npz:<dir>")
+        from audio_sheet_retrieval_tpu_torch.data.msmd import (
+            prepare_piece_data_msmd,
+        )
+        from audio_sheet_retrieval_tpu_torch.ops.audio import AudioProcessor
+        from audio_sheet_retrieval_tpu_torch.utils.audio_io import read_audio
+
+        exp = cfg_mod.load_experiment_config(config_file)
+        names = split["test"]
+
+        def loader(n):
+            return prepare_piece_data_msmd(cfg_mod.DATA_ROOT_MSMD, n)
+
+        def query_spec(n):
+            audio_file = os.path.join(
+                cfg_mod.DATA_ROOT_MSMD,
+                "%s/performances/%s_tempo-1000_%s/%s_tempo-1000_%s.flac"
+                % (n, n, exp.test_synth, n, exp.test_synth))
+            if os.path.exists(audio_file):
+                signal, sr = read_audio(audio_file)
+                return AudioProcessor(device=device).process(
+                    signal, sample_rate=sr)
+            spec_file = os.path.join(
+                cfg_mod.DATA_ROOT_MSMD,
+                "%s/performances/%s_tempo-1000_%s/features/"
+                "%s_tempo-1000_%s.flac_spec.npy"
+                % (n, n, exp.test_synth, n, exp.test_synth))
+            return np.load(spec_file)
+
+        return names, loader, query_spec
     raise ValueError(f"unknown data source {data}")
 
 
@@ -184,7 +213,8 @@ def main(argv=None):
     srv.initialize_embedding_network(
         RetrievalWrapper(model_cfg, param_file=dump_file, device=args.device))
 
-    te_pieces, loader, query_spec = make_piece_source(args.data, split)
+    te_pieces, loader, query_spec = make_piece_source(
+        args.data, split, args.config, device=args.device)
 
     if args.init_sheet_db or not os.path.exists(args.db_file):
         srv.initialize_sheet_db(te_pieces, loader)

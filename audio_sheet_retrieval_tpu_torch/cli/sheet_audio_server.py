@@ -12,8 +12,8 @@ rank; ``--dump_results`` writes retrieval_<tag>_S2A.yaml.
 ``--fused`` sends each strip through ``detect_performance_from_sheet`` (the
 raw uint8 strip uploads once; windows, embedding, top-k and votes run on
 the device) instead of the host-sliced ``detect_performance``: the same
-rankings. Sources as in ``cli/audio_sheet_server.py``: synthetic and
-``npz:<dir>``.
+rankings. Sources as in ``cli/audio_sheet_server.py``: synthetic,
+``npz:<dir>`` and ``mutopia``.
 """
 
 from __future__ import annotations
@@ -84,7 +84,8 @@ def main(argv=None):
     srv.initialize_embedding_network(
         RetrievalWrapper(model_cfg, param_file=dump_file, device=args.device))
 
-    te_pieces, loader, _ = make_piece_source(args.data, split)
+    te_pieces, loader, _ = make_piece_source(args.data, split, args.config,
+                                             device=args.device)
 
     if args.init_audio_db or not os.path.exists(args.db_file):
         srv.initialize_audio_db(te_pieces, loader)

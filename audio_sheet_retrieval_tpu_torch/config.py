@@ -1,7 +1,8 @@
 """Experiment settings the CLIs read.
 
 The port's own copy of the parts of the JAX package's ``config.py`` that
-the CLIs use: the experiment root, the experiment config
+the CLIs use: the experiment root, the MSMD collection root
+(``ASR_TPU_DATA_ROOT_MSMD``), the experiment config
 (reference:exp_configs/*.yaml loaded into a dataclass), the split yaml, the
 ``<split>_<config>`` artifact tag (reference:run_train.py:44-48) and the
 result-file naming. ``yaml`` is imported only by the functions that read
@@ -17,6 +18,7 @@ from typing import Dict, List, Optional
 EXP_ROOT = os.environ.get(
     "ASR_TPU_EXP_ROOT",
     os.path.join(os.path.expanduser("~"), "experiments", "asr_tpu"))
+DATA_ROOT_MSMD = os.environ.get("ASR_TPU_DATA_ROOT_MSMD", "/data/msmd_aug")
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 EXP_CONFIG_DIR = os.path.join(os.path.dirname(_PKG_DIR), "exp_configs")

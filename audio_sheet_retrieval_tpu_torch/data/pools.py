@@ -8,12 +8,15 @@ including the reference's ``c_stop = o_start + sheet_context`` quirk, the
 augmentation pipeline :127-201, batch assembly :203-228). The servers and
 the evaluation build it in entity order without augmentation; the CCA refit
 reads the train pool, shuffled and augmented as the experiment config says.
-The sheet-preparation helpers of the MSMD loader are not copied.
+The sheet-preparation helpers of the MSMD loader (data/msmd.py) are copied
+too: ``onset_to_coordinates``, ``systems_to_rois``, ``stack_images`` and
+``unwrap_sheet_image``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import copy
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -198,3 +201,121 @@ class AudioScoreRetrievalPool:
             sheet_batch[i, 0] = self.prepare_train_image(i_sheet, i_spec, i_onset)
             spec_batch[i, 0] = self.prepare_train_audio(i_sheet, i_spec, i_onset)
         return [sheet_batch, spec_batch]
+
+    def copy_shallow(self) -> "AudioScoreRetrievalPool":
+        return copy.copy(self)
+
+
+# ---------------------------------------------------------------------------
+# Sheet preparation helpers (msmd-free equivalents of data_pools.py:231-366)
+# ---------------------------------------------------------------------------
+
+
+def onset_to_coordinates(alignment: Sequence[Tuple[int, int]],
+                         coords_by_id: Dict[int, Tuple[float, float]],
+                         ) -> np.ndarray:
+    """(notehead_id, onset_frame) pairs -> deduplicated [N, 2] (onset, x) map.
+
+    Parity: data_pools.py:231-253 (first-come-first-kept per onset frame).
+    ``coords_by_id`` maps notehead id -> (y, x) center.
+    """
+    seen = set()
+    rows = []
+    for note_id, onset_frame in alignment:
+        if note_id not in coords_by_id:
+            continue
+        onset_frame = int(onset_frame)
+        if onset_frame in seen:
+            continue
+        seen.add(onset_frame)
+        _, cx = coords_by_id[note_id]
+        rows.append((onset_frame, int(cx)))
+    return np.asarray(rows, dtype=np.int64).reshape(-1, 2)
+
+
+def systems_to_rois(system_bboxes: Sequence[Tuple[int, int, int, int]],
+                    window_top: int = 10, window_bottom: int = 10) -> np.ndarray:
+    """System (top, left, bottom, right) boxes -> 4-corner rois centered on
+    the vertical system middle (data_pools.py:256-280)."""
+    rois = []
+    for (t, l, b, r) in system_bboxes:
+        cr = (t + b) // 2
+        r_min = cr - window_top
+        r_max = r_min + window_top + window_bottom
+        rois.append([[r_min, l], [r_min, r], [r_max, r], [r_max, l]])
+    return np.asarray(rois, dtype=np.int64).reshape(-1, 4, 2)
+
+
+def stack_images(images: Sequence[np.ndarray],
+                 coords_per_page: Sequence[Dict[int, Tuple[float, float]]],
+                 systems_per_page: Sequence[List[Tuple[int, int, int, int]]],
+                 ):
+    """Vertically stitch pages; shift notehead/system rows by page offsets
+    (data_pools.py:283-307)."""
+    stacked = images[0]
+    coords: Dict[int, Tuple[float, float]] = dict(coords_per_page[0])
+    systems: List[Tuple[int, int, int, int]] = list(systems_per_page[0])
+    row_offset = stacked.shape[0]
+    for i in range(1, len(images)):
+        stacked = np.concatenate((stacked, images[i]))
+        for nid, (y, x) in coords_per_page[i].items():
+            coords[nid] = (y + row_offset, x)
+        for (t, l, b, r) in systems_per_page[i]:
+            systems.append((t + row_offset, l, b + row_offset, r))
+        row_offset = stacked.shape[0]
+    return stacked, coords, systems
+
+
+def unwrap_sheet_image(
+    image: np.ndarray,
+    system_bboxes: Sequence[Tuple[int, int, int, int]],
+    coords_by_id: Dict[int, Tuple[float, float]],
+    note_system_assignment: Optional[Sequence[Sequence[int]]] = None,
+    window_top: int = 100,
+    window_bottom: int = 100,
+):
+    """Unroll all systems into one long SYSTEM_HEIGHT strip and remap
+    notehead coordinates (data_pools.py:310-366).
+
+    ``note_system_assignment[j]`` lists the notehead ids in system j; when
+    None, noteheads are assigned to the system whose row range contains them.
+    Returns (strip [window, total_width] uint8, {id: (y, x)} remapped coords).
+    """
+    rois = systems_to_rois(system_bboxes, window_top, window_bottom)
+    window = rois[0, 3, 0] - rois[0, 0, 0]
+    width = image.shape[1] * rois.shape[0]
+    un_wrapped = np.zeros((window, width), dtype=np.uint8)
+    un_coords: Dict[int, Tuple[float, float]] = {}
+
+    if note_system_assignment is None:
+        note_system_assignment = []
+        for j, (t, l, b, r) in enumerate(system_bboxes):
+            ids = [nid for nid, (y, x) in coords_by_id.items()
+                   if t <= y < b and l <= x <= r]
+            note_system_assignment.append(ids)
+
+    x_offset = 0
+    img_start = 0
+    for j in range(len(system_bboxes)):
+        r = rois[j].copy()
+        pad_top = pad_bottom = 0
+        if r[0, 0] < 0:
+            pad_top = int(abs(r[0, 0]))
+            r[0, 0] = 0
+        if r[3, 0] >= image.shape[0]:
+            pad_bottom = int(r[3, 0] - image.shape[0])
+
+        system_image = image[r[0, 0]:r[3, 0], r[0, 1]:r[1, 1]]
+        system_image = np.pad(system_image, ((pad_top, pad_bottom), (0, 0)),
+                              mode="edge")
+        img_end = img_start + system_image.shape[1]
+        un_wrapped[:, img_start:img_end] = system_image
+
+        for nid in note_system_assignment[j]:
+            y, x = coords_by_id[nid]
+            un_coords[nid] = (y - r[0, 0], x + x_offset - r[0, 1])
+
+        x_offset += int(r[1, 1] - r[0, 1])
+        img_start = img_end
+
+    return un_wrapped[:, :img_start], un_coords

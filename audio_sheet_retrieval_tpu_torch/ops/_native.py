@@ -45,6 +45,14 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # row_stride, smem_bytes, out, stream
         "gather_feature_windows": ([_P, _P] + [_I] * 10 + [_P, _P], _I),
     },
+    "dtw": {
+        # dist, R, C, threads, k, smem_bytes, acc, stream
+        "dtw_accumulate": ([_P] + [_I] * 5 + [_P, _P], _I),
+        # acc, R, C, out, stream
+        "dtw_traceback": ([_P, _I, _I, _P, _P], _I),
+        # rounds, threads, out, stream
+        "dtw_barrier_rounds": ([_I, _I, _P, _P], _I),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

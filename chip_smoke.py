@@ -7,8 +7,9 @@ exits non-zero):
 
 1. device: the card's name and power limit; TF32 off for convolutions and
    matmuls.
-2. build: both CUDA kernels compiled from ``audio_sheet_retrieval_tpu_torch/
-   csrc`` with nvcc (ptxas register / shared-memory report).
+2. build: the three CUDA sources compiled from
+   ``audio_sheet_retrieval_tpu_torch/csrc`` with nvcc, one process each,
+   all started together (ptxas register / shared-memory report).
 3. kernels: each kernel against its plain PyTorch version on the card
    (top-k: scores atol 1e-4, equal index sets, tie rule, NaN queries, k up
    to 20,000 and k = N, at the boundaries of its launch plan (query-block
@@ -119,15 +120,42 @@ exits non-zero):
    in float32, within 1e-2 of the MRR), the step's event ms, device busy
    and peak memory beside float32's.
 
+14. alignment: a. both DTW kernels (``csrc/dtw.cu``: the accumulation
+   and the traceback) against their plain versions on the card at (90,
+   70), (64, 128) (wide, so transposed), (70, 65) and (604, 860), each
+   with random costs and with costs quantized to quarters (many exact
+   ties), at 6,000 x 4,000 and at 16,500 x 16,400 (wider than the
+   shared-memory ring: the global-memory path): the accumulated costs
+   bit-identical (the +inf cells of the diagonal layout included), the
+   path identical, the final cost identical, ``dtw_by_dist`` on the card
+   equal to the CPU's up to 10^6 cells;
+   their times at the corpus piece's shape and at 6,000 x 4,000 beside the
+   plain versions', the byte bound and the barrier floor (the diagonals
+   times one empty barrier round, ``dtw_barrier_rounds``). b.
+   ``audio2sheet_align.main`` at full width (``mutopia_ccal_cont_rsz``,
+   ``synth_serving_ckpt.pkl``) over 12 corpus pieces (``npz:``), in
+   ``pydtw`` and ``baseline``, at the CLI's default steps (a 604 x 860
+   distance matrix a piece): every onset's pixel error finite, the DTW
+   path from the card's distances equal to the CPU's, the card's
+   alignment equal to the CPU's from the same codes, the errors' mean and
+   median and the seconds a piece; then ``--data synthetic``. c.
+   ``--data mutopia`` over the msmd stub (``tests/msmd_stub``, on
+   ``sys.path`` for this phase only) against ``--data npz:`` of
+   ``export_msmd_npz``'s export of the same pieces: the same errors.
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
-phases 11-13 (``fit``, ``run_eval``, the CLI, the resume runs, each build
-and query set of phase 13); each of those phases must launch the top-k
-kernel, and the ``kernels`` line reports the sum over phases 4-13 (kernel
-2's bf16 launches of phase 13 among them), beside each kernel's times at
-the main path's shape (top-k: Q = 100, N = 12,000, k = 25; gather: one
-6040-px strip, float32; its bf16 times on a line of their own). The last
-line is ``{"ok": true, "device": {...}}``.
+phases 11-14 (``fit``, ``run_eval``, the CLI, the resume runs, each build
+and query set of phase 13, each ``audio2sheet_align`` run of phase 14);
+each of phases 4-13 must launch the top-k kernel and phase 14 both DTW
+kernels once for each piece it aligns by ``pydtw``, and the ``kernels``
+line reports the sum over phases 4-14 (kernel 2's bf16 launches of phase
+13 among them), beside each kernel's times at the main path's shape
+(top-k: Q = 100, N = 12,000, k = 25; gather: one 6040-px strip, float32,
+its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
+after the transpose, the accumulation's launches as ``launches`` and the
+traceback's as ``traceback_launches``). The last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -199,6 +227,24 @@ def device_us(fn, name: str = "", iters: int = 20) -> float:
     return sum(ev.time_range.elapsed_us() for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and name in ev.name) / iters
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Milliseconds a call of ``fn()`` over ``n`` calls queued back to back
+    between two events: for a launch longer than the host's enqueue, the
+    device's time (the card never waits for the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def bound(nbytes: float, flops: float):
@@ -605,19 +651,25 @@ def plain_fullconv_codes(torch, params, cfg, images, coords):
 
 
 def zero_launches():
+    from audio_sheet_retrieval_tpu_torch.ops import dtw
     from audio_sheet_retrieval_tpu_torch.ops import windows as win
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 
     topk_gallery.launches = 0
     win.gather_feature_windows.launches = 0
+    dtw.dtw_accumulate.launches = 0
+    dtw.dtw_traceback.launches = 0
 
 
 def read_launches() -> dict:
+    from audio_sheet_retrieval_tpu_torch.ops import dtw
     from audio_sheet_retrieval_tpu_torch.ops import windows as win
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 
     return {"topk_gallery": topk_gallery.launches,
-            "gather_feature_windows": win.gather_feature_windows.launches}
+            "gather_feature_windows": win.gather_feature_windows.launches,
+            "dtw_accumulate": dtw.dtw_accumulate.launches,
+            "dtw_traceback": dtw.dtw_traceback.launches}
 
 
 def phase_serving(torch):
@@ -733,7 +785,7 @@ def phase_serving(torch):
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
     ctx = dict(dev=dev, cfg=cfg, params=params, ckpt=ckpt, images=images,
-               specs=specs, coords=coords, gallery=exact_gal,
+               specs=specs, coords=coords, o2cs=o2cs, gallery=exact_gal,
                galleries={arm: g for arm, (g, _) in run.items()},
                serving={arm: dict(emb_per_s=g.n / build_s_of[arm],
                                   rank1=a["rank1"],
@@ -1483,7 +1535,7 @@ def phase_train(torch, ctx):
     assert run_train.build_arg_parser().get_default("device") == "cuda"
     augment = config.load_experiment_config("mutopia_full_aug").augment
     ctx["augment"] = augment
-    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
+    launches = {name: 0 for name in read_launches()}
     count = launch_counter(launches)
 
     # 1. one step, card against CPU, polar then eigh
@@ -1646,7 +1698,7 @@ def phase_device_pool(torch, ctx):
 
     dev, cfg, augment = ctx["dev"], ctx["cfg"], ctx["augment"]
     assert run_train.build_arg_parser().get_default("host_data") is False
-    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
+    launches = {name: 0 for name in read_launches()}
     count = launch_counter(launches)
 
     # a. batches, card against CPU, in every branch
@@ -1882,7 +1934,7 @@ def phase_precision(torch, ctx):
     n_pieces = len(images)
     cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     cfg_high = dataclasses.replace(cfg, conv_precision="high")
-    launches = {"topk_gallery": 0, "gather_feature_windows": 0}
+    launches = {name: 0 for name in read_launches()}
     count = launch_counter(launches)
     acc_kw = dict(coords=coords, n_candidates=25, queries_per_piece=1,
                   excerpts_per_query=100, quantize=16, device=dev)
@@ -2104,6 +2156,303 @@ def phase_precision(torch, ctx):
     return launches
 
 
+# --- phase 14: alignment -----------------------------------------------------
+
+# the shapes phase 14a holds the DTW kernels to their plain versions at:
+# small, wide (so transposed), near-square, chip_smoke's corpus piece at the
+# CLI's default steps (604 sheet x 860 spectrogram positions) and the
+# 6,000 x 4,000 alignment the JAX package's docstring names
+DTW_SHAPES = ((90, 70), (64, 128), (70, 65), (604, 860))
+DTW_LARGE = (6000, 4000)
+# wider than the shared-memory ring's 16,384 columns: the global-memory path
+DTW_GLOBAL = (16_500, 16_400)
+ALIGN_PIECES = 12          # of the 60-piece corpus, through npz:
+STUB_PIECES = ["StubPiece_A", "StubPiece_Ragged", "StubPiece_Audio44k",
+               "StubPiece_D"]
+STUB_COLLECTION = "/fake/collection"   # the msmd stub seeds pieces from it
+
+
+def dtw_costs(shape, kind, seed):
+    d = np.random.default_rng(seed).random(shape).astype(np.float32)
+    return np.round(d * 4) / 4 if kind == "quarters" else d
+
+
+def check_dtw(torch, dist: np.ndarray) -> dict:
+    """Both DTW kernels against their plain versions on the card, on the
+    tall orientation ``dtw_by_dist`` runs (a wide matrix is transposed):
+    the accumulated costs bit-identical (+inf cells of the diagonal layout
+    included), the path identical, the final cost identical; and the whole
+    ``dtw_by_dist`` on the card equal to the CPU's (float32 path)."""
+    from audio_sheet_retrieval_tpu_torch.ops import dtw
+
+    tall = dist if dist.shape[0] >= dist.shape[1] else dist.T
+    x = torch.from_numpy(np.ascontiguousarray(tall)).to("cuda")
+    skew = dtw.skew_to_diagonals(x)
+    acc = dtw.dtw_accumulate(skew)
+    ref = dtw.dtw_accumulate_plain(skew)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref), f"dtw_accumulate differs at {dist.shape}"
+    got, want = dtw.dtw_traceback(acc), dtw.dtw_traceback_plain(acc)
+    assert np.array_equal(got[0], want[0]) and \
+        np.array_equal(got[1], want[1]), f"path differs at {dist.shape}"
+    assert got[2] == want[2] == float(acc[-1, -1]), (got[2], want[2])
+    if dist.size <= 10 ** 8:   # the whole float32 path, its matrix downloaded
+        card = dtw.dtw_by_dist(dist, device="cuda")
+        assert np.array_equal(card[2], dtw.diagonals_to_matrix(
+            acc, tall.shape[0]).cpu().numpy())
+    if dist.size <= 10 ** 6:   # the CPU's plain loop, at the small shapes
+        cpu = dtw.dtw_by_dist(dist, device="cpu")
+        assert card[0] == cpu[0]
+        assert np.array_equal(card[2], cpu[2])
+        assert all(np.array_equal(a, b) for a, b in zip(card[3], cpu[3]))
+    return dict(shape=list(dist.shape), path_len=len(got[0]),
+                cost=got[2], max_abs_err=0.0)
+
+
+def dtw_bound(r: int, c: int, n_path: int):
+    """DTW of an [r, c] matrix: the distances read once, the accumulated
+    costs written once, the path written (int64 pairs); two mins and an
+    add a cell at the float32 rate."""
+    return bound(8 * r * c + 16 * n_path, 3 * r * c)
+
+
+def dtw_times(torch, dist: np.ndarray, plain_iters: int) -> dict:
+    """Times of the DTW kernels on the tall orientation of ``dist``: event
+    ms of a call (``ms``: the accumulation and the traceback with its path
+    download; each alone), each kernel queued back to back (its device
+    time); the plain versions' on the card, the bound and the barrier
+    floor: the diagonals times one empty barrier round of the same CTA
+    width (``dtw_barrier_rounds``)."""
+    from audio_sheet_retrieval_tpu_torch.ops import _native, dtw
+
+    tall = dist if dist.shape[0] >= dist.shape[1] else dist.T
+    r, c = tall.shape
+    x = torch.from_numpy(np.ascontiguousarray(tall)).to("cuda")
+    skew = dtw.skew_to_diagonals(x)
+    acc = dtw.dtw_accumulate(skew)
+    n_path = len(dtw.dtw_traceback(acc)[0])
+    b_ms, b_by = dtw_bound(r, c, n_path)
+    plan = dtw.acc_plan(c)
+    lib = _native.load("dtw")
+    scratch = torch.empty(plan.threads, dtype=torch.int32, device="cuda")
+    scratch_tb = torch.empty(2 + 2 * (r + c - 1), dtype=torch.int32,
+                             device="cuda")
+    n_diag = r + c - 1
+    round_ms = cuda_ms(lambda: _native.check(lib.dtw_barrier_rounds(
+        n_diag, plan.threads, scratch.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "barrier"),
+        iters=10) / n_diag
+    row = dict(
+        ms=cuda_ms(lambda: dtw.dtw_traceback(dtw.dtw_accumulate(skew)),
+                   iters=10),
+        plain_ms=cuda_ms(lambda: dtw.dtw_traceback_plain(
+            dtw.dtw_accumulate_plain(skew)), iters=plain_iters, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        # no single PyTorch call computes DTW
+        library_ms=None,
+        barrier_floor_ms=round_ms * n_diag,
+        barrier_round_ns=round_ms * 1e6,
+        accumulate_ms=cuda_ms(lambda: dtw.dtw_accumulate(skew), iters=10),
+        accumulate_queued_ms=queued_ms(lambda: dtw.dtw_accumulate(skew)),
+        traceback_ms=cuda_ms(lambda: dtw.dtw_traceback(acc), iters=10),
+        # the bare kernel, queued, without the wrapper's path download (the
+        # profiler recorded only some launches of these kernels on an H100)
+        traceback_queued_ms=queued_ms(lambda: _native.check(
+            lib.dtw_traceback(acc.data_ptr(), r, c, scratch_tb.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream),
+            "dtw_traceback")),
+        skew_ms=cuda_ms(lambda: dtw.skew_to_diagonals(x), iters=10),
+        plan=list(plan))
+    emit("timing", kernel="dtw", R=r, C=c, diagonals=n_diag,
+         path_len=n_path, **row)
+    return row
+
+
+def pieces_npz(tmp, names, images, specs, o2cs):
+    """Pieces as an ``npz:`` source and a split yaml whose test split they
+    are."""
+    import yaml
+
+    for name, im, sp, oc in zip(names, images, specs, o2cs):
+        np.savez(os.path.join(tmp, name + ".npz"), image=im, spec_0=sp,
+                 o2c_0=oc)
+    split = os.path.join(tmp, "split.yaml")
+    with open(split, "w") as fp:
+        yaml.safe_dump({"train": [], "valid": [], "test": list(names)}, fp)
+    return split
+
+
+def run_align(count, argv) -> dict:
+    """``audio2sheet_align.main(argv)`` on the card, its launches counted,
+    its report kept off the output -> {piece: pixel errors}, seconds."""
+    import contextlib
+    import io
+
+    from audio_sheet_retrieval_tpu_torch.cli import audio2sheet_align
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        errors = count(lambda: audio2sheet_align.main(argv))
+    seconds = time.perf_counter() - t0
+    for piece, err in errors.items():
+        assert np.isfinite(err).all() and len(err) > 0, piece
+    return errors, seconds
+
+
+def error_summary(errors: dict) -> dict:
+    e = np.abs(np.concatenate(list(errors.values())))
+    return dict(pieces=len(errors), onsets=int(e.size),
+                mean_abs_px=float(e.mean()), median_abs_px=float(np.median(e)),
+                max_abs_px=float(e.max()))
+
+
+def align_cli(torch, ctx, count) -> dict:
+    """14b-c. ``audio2sheet_align.main`` at full width on ``ctx["dev"]``:
+    over 12 corpus pieces (npz:), the synthetic source and the msmd stub
+    (``--data mutopia`` against ``npz:`` of its export) -> the numbers."""
+    from audio_sheet_retrieval_tpu_torch import config
+    from audio_sheet_retrieval_tpu_torch.cli import audio2sheet_align as a2s
+    from audio_sheet_retrieval_tpu_torch.cli import export_msmd_npz
+    from audio_sheet_retrieval_tpu_torch.ops import dtw
+    from audio_sheet_retrieval_tpu_torch.retrieval import alignment
+
+    dev, ckpt = str(ctx["dev"]), ctx["ckpt"]
+    names = ["align_%02d" % i for i in range(ALIGN_PIECES)]
+    seen = []
+    orig = a2s.compute_alignment
+
+    def record(*args, **kw):   # the codes and indices the CLI aligns
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        seen.append((args, out, time.perf_counter() - t0))
+        return out
+
+    npz = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        split = pieces_npz(tmp, names, ctx["images"][:ALIGN_PIECES],
+                           ctx["specs"][:ALIGN_PIECES],
+                           [oc[0] for oc in ctx["o2cs"][:ALIGN_PIECES]])
+        common = ["--data", "npz:" + tmp, "--train_split", split,
+                  "--param_file", ckpt, "--device", dev]
+        a2s.compute_alignment = record
+        try:
+            for align_by in ("pydtw", "baseline"):
+                seen.clear()
+                errors, seconds = run_align(count, common + [
+                    "--align_by", align_by, "--dump_alignment"])
+                npz[align_by] = dict(
+                    error_summary(errors), seconds_per_piece=seconds
+                    / len(errors), align_s_per_piece=float(np.mean(
+                        [s for _, _, s in seen])))
+                if align_by == "pydtw":
+                    pydtw_seen = list(seen)
+                dumped = config.derive_result_path(
+                    ckpt, "alignment_res_", align_by + ".pkl")
+                assert os.path.exists(dumped), dumped
+                os.unlink(dumped)
+        finally:
+            a2s.compute_alignment = orig
+    # the DTW path from the card's own distances, card against CPU, and
+    # the card's alignment against the CPU's from the same codes
+    same_codes = 0
+    for args, (_, res), _ in pydtw_seen:
+        _, cpu = alignment.compute_alignment(*args[:5], device="cpu")
+        same_codes += int(np.array_equal(cpu["aligned_sheet_idxs"],
+                                         res["aligned_sheet_idxs"]))
+        card = dtw.dtw_by_dist(res["dists"], return_acc=False, device=dev)
+        host = dtw.dtw_by_dist(res["dists"], return_acc=False, device="cpu")
+        assert card[0] == host[0] and all(
+            np.array_equal(a, b) for a, b in zip(card[3], host[3]))
+    emit("alignment", check="b. audio2sheet_align npz",
+         model="mutopia_ccal_cont_rsz", checkpoint="synth_serving_ckpt.pkl",
+         dist_shape=list(pydtw_seen[0][1][1]["dists"].shape),
+         pieces=ALIGN_PIECES, card_path_equals_cpu_from_same_dists=True,
+         card_alignment_equals_cpu_from_same_codes="%d of %d" % (
+             same_codes, len(pydtw_seen)), **npz)
+    assert same_codes == len(pydtw_seen), same_codes
+    synth = {}
+    for align_by in ("pydtw", "baseline"):
+        errors, seconds = run_align(count, [
+            "--data", "synthetic", "--n_test_pieces", "4", "--param_file",
+            ckpt, "--align_by", align_by, "--device", dev])
+        synth[align_by] = dict(error_summary(errors),
+                               seconds_per_piece=seconds / len(errors))
+    emit("alignment", check="b. audio2sheet_align synthetic", **synth)
+
+    stub = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "msmd_stub")
+    sys.path.insert(0, stub)
+    root = config.DATA_ROOT_MSMD
+    config.DATA_ROOT_MSMD = STUB_COLLECTION
+    mutopia = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            import contextlib
+            import io
+
+            import yaml
+
+            split = os.path.join(tmp, "split.yaml")
+            with open(split, "w") as fp:
+                yaml.safe_dump({"train": [], "valid": [],
+                                "test": STUB_PIECES}, fp)
+            out = os.path.join(tmp, "npz")
+            with contextlib.redirect_stdout(io.StringIO()):
+                n = export_msmd_npz.main(["--train_split", split,
+                                          "--out_dir", out])
+            assert n == len(STUB_PIECES), n
+            for align_by in ("pydtw", "baseline"):
+                base = ["--train_split", split, "--param_file", ckpt,
+                        "--align_by", align_by, "--device", dev]
+                mut, _ = run_align(count, ["--data", "mutopia"] + base)
+                exported, _ = run_align(count, ["--data", "npz:" + out]
+                                        + base)
+                assert sorted(mut) == sorted(exported) == sorted(STUB_PIECES)
+                for piece in STUB_PIECES:
+                    assert np.array_equal(mut[piece], exported[piece]), piece
+                mutopia[align_by] = error_summary(mut)
+    finally:
+        config.DATA_ROOT_MSMD = root
+        sys.path.remove(stub)
+        for mod in [m for m in sys.modules if m.split(".")[0] == "msmd"]:
+            del sys.modules[mod]
+    emit("alignment", check="c. audio2sheet_align --data mutopia (stub)",
+         pieces=STUB_PIECES, equal_to_npz_export=True, **mutopia)
+    return dict(npz=npz, synthetic=synth, mutopia=mutopia)
+
+
+def phase_alignment(torch, ctx):
+    """14. The DTW kernels against their plain versions at every listed
+    shape and their times, then ``align_cli`` with its launches counted."""
+    t0 = time.perf_counter()
+    checked = []
+    for i, shape in enumerate(DTW_SHAPES):
+        for kind in ("random", "quarters"):
+            checked.append(dict(check_dtw(torch, dtw_costs(shape, kind, i)),
+                                kind=kind))
+    checked.append(dict(check_dtw(torch, dtw_costs(DTW_LARGE, "random", 9)),
+                        kind="random"))
+    checked.append(dict(check_dtw(torch, dtw_costs(DTW_GLOBAL, "random",
+                                                   10)), kind="random"))
+    emit("alignment", check="a. kernels vs plain", bit_identical=True,
+         cases=checked)
+    times = dtw_times(torch, dtw_costs(DTW_SHAPES[-1], "random", 3), 5)
+    large = dtw_times(torch, dtw_costs(DTW_LARGE, "random", 9), 2)
+
+    launches = {name: 0 for name in read_launches()}
+    align_cli(torch, ctx, launch_counter(launches))
+    emit("alignment", check="launches", launches=launches,
+         phase_seconds=time.perf_counter() - t0)
+    # the 12 corpus pieces through pydtw: one accumulation and one
+    # traceback a piece; then the synthetic and stub pieces
+    assert launches["dtw_accumulate"] == launches["dtw_traceback"] == \
+        ALIGN_PIECES + 4 + 2 * len(STUB_PIECES), launches
+    ctx["dtw_stats"] = dict(times, max_abs_err=0.0,
+                            large={"R": DTW_LARGE[0], "C": DTW_LARGE[1],
+                                   **large})
+    return launches
+
+
 def main() -> int:
     torch = require_cuda()
     smi = phase_device(torch)
@@ -2112,16 +2461,24 @@ def main() -> int:
     ctx, launches = phase_serving(torch)
     for phase in (phase_s2a, phase_streaming, phase_audio,
                   phase_eval_refine, phase_train, phase_device_pool,
-                  phase_precision):
+                  phase_precision, phase_alignment):
         for name, n in phase(torch, ctx).items():
             launches[name] += n
     rows = []
     replaces = {"topk_gallery":
                 "audio_sheet_retrieval_tpu/ops/topk_gallery.py:45",
                 "gather_feature_windows":
-                "audio_sheet_retrieval_tpu/ops/windows.py:84"}
+                "audio_sheet_retrieval_tpu/ops/windows.py:84",
+                "dtw": "audio_sheet_retrieval_tpu/ops/dtw.py:46"}
     sources = {"topk_gallery": "topk_gallery.cu",
-               "gather_feature_windows": "feature_windows.cu"}
+               "gather_feature_windows": "feature_windows.cu",
+               "dtw": "dtw.cu"}
+    kernel_stats["dtw"] = dict(
+        ctx["dtw_stats"], traceback_launches=launches["dtw_traceback"],
+        note="replaces lax.scan loops (not Pallas): the accumulation "
+        "audio_sheet_retrieval_tpu/ops/dtw.py:46, the traceback "
+        "audio_sheet_retrieval_tpu/ops/dtw.py:94")
+    launches["dtw"] = launches["dtw_accumulate"]
     for name, stats in kernel_stats.items():
         rows.append({"name": name, "route": "cuda",
                      "source": "audio_sheet_retrieval_tpu_torch/csrc/"

@@ -8,21 +8,26 @@ held within 1, MRR within 1e-3 and the median rank within 1; embeddings of
 a checkpoint both packages load, within 1e-5.
 """
 
+import contextlib
 import os
 import pickle
 import shutil
+import sys
 
 import jax
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from audio_sheet_retrieval_tpu import assets
+from audio_sheet_retrieval_tpu import config as jconfig
 from audio_sheet_retrieval_tpu.cli import refine_cca as jrefine
 from audio_sheet_retrieval_tpu.cli import run_eval as jeval
 from audio_sheet_retrieval_tpu.models import cca_model as jcca_model
 from audio_sheet_retrieval_tpu.models.configs import get_model_config
 from audio_sheet_retrieval_tpu.retrieval import wrapper as jwrapper
+from audio_sheet_retrieval_tpu_torch import config as tconfig
 from audio_sheet_retrieval_tpu_torch.cli import refine_cca as trefine
 from audio_sheet_retrieval_tpu_torch.cli import run_eval as teval
 from audio_sheet_retrieval_tpu_torch.data import synthetic as tsyn
@@ -76,7 +81,24 @@ def test_run_eval_matches_jax(tmp_path, capsys, extra, direction):
     assert "Top 25:" in report and "MAP" in report
 
 
-def test_run_eval_parser_and_unported_modes(tmp_path):
+@contextlib.contextmanager
+def msmd_stub_collection(monkeypatch):
+    """The msmd stub (tests/msmd_stub) importable as ``msmd``, and both
+    packages' MSMD root pointing at the collection it makes up."""
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "msmd_stub"))
+    for mod in [m for m in sys.modules if m.split(".")[0] == "msmd"]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setattr(jconfig, "DATA_ROOT_MSMD", "/fake/collection")
+    monkeypatch.setattr(tconfig, "DATA_ROOT_MSMD", "/fake/collection")
+    try:
+        yield
+    finally:
+        for mod in [m for m in sys.modules if m.split(".")[0] == "msmd"]:
+            sys.modules.pop(mod, None)
+
+
+def test_run_eval_parser_and_unported_modes(tmp_path, monkeypatch, capsys):
     parser, jparser = teval.build_arg_parser(), jeval.build_arg_parser()
     flags = {a.dest for a in parser._actions}
     assert flags == {a.dest for a in jparser._actions} | {"device"}
@@ -93,11 +115,34 @@ def test_run_eval_parser_and_unported_modes(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         teval.main(common + ["--data", "synthetic", "--conv_precision",
                              "default"])
-    with pytest.raises(NotImplementedError, match="msmd"):
-        teval.main(common + ["--data", "mutopia", "--train_split", "s.yaml"])
-    with pytest.raises(NotImplementedError, match="msmd"):
-        trefine.main(common[:4] + ["--data", "mutopia", "--exp_root",
-                                   str(tmp_path)])
+    # --data mutopia, over the msmd stub the repo carries: run_eval gives
+    # the JAX CLI's results, and refine_cca reads the JAX CLI's pools (its
+    # "Train/Valid/Test: N" report). The stub's pieces give degenerate
+    # pre-CCA latents under this checkpoint: the JAX CLI fits NaN
+    # correlations and writes them, the port's SVD refuses the NaN input
+    with msmd_stub_collection(monkeypatch):
+        split = tmp_path / "stub_split.yaml"
+        split.write_text(yaml.safe_dump(dict(
+            train=["StubPiece_A", "StubPiece_B"], valid=["StubPiece_C"],
+            test=["StubPiece_D", "StubPiece_E"])))
+        mut = ["--data", "mutopia", "--train_split", str(split)]
+        assert_results_close(
+            teval.main(common + mut),
+            jeval.main(["--param_file", SYNTH_CKPT, "--n_test", "10"] + mut),
+            n_test=10)
+        capsys.readouterr()
+        with pytest.raises(torch.linalg.LinAlgError, match="non-finite"):
+            trefine.main(common[:4] + mut + ["--exp_root", str(tmp_path)])
+        report = capsys.readouterr().out
+        jrefine.main(common[:2] + mut + ["--exp_root",
+                                         str(tmp_path / "jax")])
+        jreport = capsys.readouterr().out
+        assert "Canonical-Correlation: nan" in jreport
+
+        def pools(text):
+            return [ln for ln in text.splitlines()
+                    if ln.startswith(("Train:", "Valid:", "Test:"))]
+        assert pools(report) == pools(jreport) and len(pools(report)) == 3
     # the default checkpoint path follows the tag, as in the JAX CLI
     with pytest.raises(FileNotFoundError, match="params_split_cfg.pkl"):
         teval.main(["--data", "synthetic", "--device", "cpu", "--exp_root",

@@ -200,7 +200,8 @@ def test_cli_full_eval_matches_jax_server(synth, tmp_path):
 
 def test_cli_demo_and_unported_modes(synth, tmp_path, capsys):
     """The single-piece demo streams, through the device stream by default
-    and the host loop with --host_stream; the MSMD source raises;
+    and the host loop with --host_stream; the MSMD source fails where the
+    JAX CLI's does;
     ``--conv_precision high`` gives the JAX server's ranks under the same
     numerics, and the unported ``default`` raises."""
     common = ["--device", "cpu", "--n_test_pieces", "2", "--param_file",
@@ -210,8 +211,15 @@ def test_cli_demo_and_unported_modes(synth, tmp_path, capsys):
     assert "device streaming at" in capsys.readouterr().out
     assert tcli.main(common + ["--host_stream"]) is None
     assert "Server is running at" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="msmd"):
+    # the MSMD source queries the test performance's audio or its
+    # _spec.npy under the collection root, as the JAX CLI does: neither
+    # exists here, so both name the same missing file
+    with pytest.raises(FileNotFoundError) as got:
         tcli.main(common + ["--data", "mutopia"])
+    with pytest.raises(FileNotFoundError) as want:
+        jcli.make_piece_source("mutopia", {"test": ["x"]}, None)[2]("x")
+    assert "_spec.npy" in str(want.value)
+    assert str(got.value) == str(want.value)
     ranks = tcli.main(common[:-2] + ["--init_sheet_db", "--full_eval",
                                      "--conv_precision", "high"])
     cfg = dataclasses.replace(synth["cfg"], conv_precision="high")
@@ -329,6 +337,10 @@ with tempfile.TemporaryDirectory() as tmp:
     run_eval.main(["--data", "synthetic", "--n_test", "20", "--device",
                    "cpu", "--param_file", refined, "--V2_to_V1", "--max_dim",
                    "16"])
+from audio_sheet_retrieval_tpu_torch.cli import audio2sheet_align
+audio2sheet_align.main(["--data", "synthetic", "--n_test_pieces", "1",
+                        "--device", "cpu", "--param_file", ckpt,
+                        "--align_by", "pydtw"])
 import dataclasses
 from audio_sheet_retrieval_tpu_torch.cli import run_train
 from audio_sheet_retrieval_tpu_torch.models import configs as mconfigs
@@ -347,7 +359,8 @@ print("JAX_MODULES", loaded)
 
 def test_port_never_imports_jax():
     """Every module of the port and chip_smoke.py import, and the serving
-    paths, the evaluation and CCA-refit CLIs and training (``run_train``:
+    paths, the evaluation, CCA-refit and alignment CLIs and training
+    (``run_train``:
     ``fit``, its train step and its evaluation) run, with the JAX package
     refused by an import hook; afterwards no module of jax or of the JAX
     package is loaded."""

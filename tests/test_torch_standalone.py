@@ -10,6 +10,7 @@ import ast
 import dataclasses
 import glob
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -61,8 +62,12 @@ def test_no_import_of_the_jax_package(path):
 def test_port_sources_are_found():
     names = {os.path.relpath(p, REPO) for p in PORT_SOURCES}
     assert "chip_smoke.py" in names
-    assert os.path.join("audio_sheet_retrieval_tpu_torch", "data",
-                        "pools.py") in names
+    for module in ("data/pools.py", "data/msmd.py", "ops/dtw.py",
+                   "retrieval/alignment.py", "cli/audio2sheet_align.py",
+                   "cli/alignment_video.py", "cli/export_msmd_npz.py",
+                   "utils/audio_io.py", "utils/flac_native.py"):
+        assert os.path.join("audio_sheet_retrieval_tpu_torch",
+                            *module.split("/")) in names, module
 
 
 @pytest.mark.parametrize("name", sorted(jconfigs.MODEL_REGISTRY))
@@ -233,9 +238,24 @@ def test_select_data_npz_bit_for_bit(tmp_path, pieces):
     assert len(im) == len(sp) == len(oc) == 2
 
 
-def test_select_data_mutopia_raises_with_the_reason():
-    with pytest.raises(NotImplementedError, match="msmd"):
+def test_select_data_mutopia_raises_with_the_reason(tmp_path, monkeypatch,
+                                                   capsys):
+    """``mutopia`` behaves as the JAX package's: a missing split file
+    raises; without the msmd package each piece is skipped with JAX's
+    message and the empty test pool raises as JAX's does (the stub's pieces
+    are held to JAX's in tests/test_torch_msmd.py)."""
+    with pytest.raises(FileNotFoundError, match="split.yaml"):
         tmsmd.select_data("mutopia", "split.yaml", None)
+    split = tmp_path / "split.yaml"
+    split.write_text("train: [P1]\nvalid: [P2]\ntest: [P3]\n")
+    monkeypatch.setitem(sys.modules, "msmd", None)   # import msmd fails
+    errors = []
+    for pkg in (tmsmd, jmsmd):
+        with pytest.raises(IndexError) as e:
+            pkg.select_data("mutopia", str(split), None, test_only=True)
+        errors.append((str(e.value), capsys.readouterr().out))
+    assert errors[0] == errors[1]
+    assert "Problems with loading piece P3" in errors[0][1]
     with pytest.raises(ValueError, match="unknown data source"):
         tmsmd.select_data("nope", None, None)
 
