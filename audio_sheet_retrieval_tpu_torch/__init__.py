@@ -15,6 +15,9 @@ device gallery and the server. The gallery top-k and the feature-window
 gather of the fullconv DB build run as hand-written CUDA kernels
 (``csrc/``, built with nvcc for sm_90a on first use, see ``ops/_native.py``);
 given CPU tensors their wrappers run plain PyTorch versions instead.
+Training, evaluation / refit, alignment and OMR on raw score pages
+(``models/unet.py`` and ``omr/``: the U-Nets on the device, the detectors
+on the host without OpenCV) are ported too.
 """
 
 __version__ = "0.1.0"

@@ -28,10 +28,33 @@ def asset_path(name: str) -> str:
     return os.path.join(_DIR, name)
 
 
+def has_asset(name: str) -> bool:
+    return os.path.exists(asset_path(name))
+
+
 def tutorial_checkpoint_path() -> str:
     """The shipped retrieval checkpoint (``mutopia_ccal_cont_rsz``) as a
     raw-array npz."""
     return asset_path("tutorial_checkpoint.npz")
+
+
+def omr_weights_path(kind: str) -> str:
+    """The OMR U-Net weights of ``kind`` ('system', 'bar' or 'note'), 99
+    raw arrays each."""
+    if kind not in ("system", "bar", "note"):
+        raise ValueError(f"kind must be 'system', 'bar' or 'note', got "
+                         f"{kind!r}")
+    return asset_path(f"omr_{kind}.npz")
+
+
+def tutorial_sheet_path() -> str:
+    """The tutorial score page (835 x 1181 PNG)."""
+    return asset_path("sheet_image.png")
+
+
+def tutorial_audio_path() -> str:
+    """The tutorial recording of that page (mp3)."""
+    return asset_path("audio.mp3")
 
 
 def load_raw_arrays(path: str) -> List[np.ndarray]:

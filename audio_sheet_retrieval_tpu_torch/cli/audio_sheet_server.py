@@ -115,11 +115,11 @@ def param_file_for(args, model_cfg, tag):
 
 
 def evaluate(pieces, detect, what: str, dump_file: str, dump_results: bool,
-             suffix: str):
+             suffix: str, prefix: str = "retrieval_"):
     """Rank of each piece's own entry under ``detect(name) -> (ranking,
     vote shares)`` (a piece missing from the ranking gets its length), a
     per-position summary, and with ``dump_results`` the rank list as
-    ``retrieval_<tag>_<suffix>`` beside the params file. -> the ranks."""
+    ``<prefix><tag>_<suffix>`` beside the params file. -> the ranks."""
     print(col.print_colored("\nRunning full evaluation:", col.UNDERLINE))
     ranks = []
     for tp in pieces:
@@ -146,8 +146,7 @@ def evaluate(pieces, detect, what: str, dump_file: str, dump_results: bool,
     if dump_results:
         import yaml
 
-        res_file = cfg_mod.derive_result_path(dump_file, "retrieval_",
-                                              suffix)
+        res_file = cfg_mod.derive_result_path(dump_file, prefix, suffix)
         os.makedirs(os.path.dirname(os.path.abspath(res_file)),
                     exist_ok=True)
         with open(res_file, "w") as fp:

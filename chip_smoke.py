@@ -143,13 +143,36 @@ exits non-zero):
    ``sys.path`` for this phase only) against ``--data npz:`` of
    ``export_msmd_npz``'s export of the same pieces: the same errors.
 
+15. OMR (no kernel of its own: the JAX package reaches no ``pallas_call``
+   there): the vendored tutorial page through the three vendored U-Nets
+   (system, bar, note) on the card, against the JAX package's results in
+   ``tests/golden/omr_tutorial_page.npz`` (``scripts/jax_omr_golden.py``).
+   a. float32 ``highest``: systems, bars with and without systems, and
+   noteheads equal to JAX's; the system map's u16 codes within 1 of JAX's,
+   and no more of them off a plain float64 run of the same U-Net and
+   blend on the card than JAX's own codes are; ``high`` giving the same
+   codes. b. bf16 against that float32 run under the JAX package's own
+   bf16 gate (systems and bars within 2 px, as many bars, noteheads
+   within 2 % in count), the bf16 map's largest deviation and flip share.
+   c. ``tutorial --synth_audio``: 6 systems, the distance matrix within
+   1e-3 of JAX's (and the tutorial mp3 where libmpg123.so.0 loads; a line
+   says which ran). d. a two-piece UMC directory from the page, written
+   with ``imwrite_gray``: ``umc_a2s_server --full_eval`` (host and
+   ``--device_db``) and ``umc_s2a_server --full_eval --device_db``, ranks
+   equal to JAX's and the yaml dumps read back; ``prepare_umc_data`` on a
+   copy at width 1200 writing ``resize_linear_u8``'s pages. e. each net's
+   page time (events, 15 tiles, float32 and bf16), tiles per second, peak
+   memory and the system net's device time by kind (torch.profiler)
+   beside the bound.
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
-phases 11-14 (``fit``, ``run_eval``, the CLI, the resume runs, each build
-and query set of phase 13, each ``audio2sheet_align`` run of phase 14);
-each of phases 4-13 must launch the top-k kernel and phase 14 both DTW
-kernels once for each piece it aligns by ``pydtw``, and the ``kernels``
-line reports the sum over phases 4-14 (kernel 2's bf16 launches of phase
+phases 11-15 (``fit``, ``run_eval``, the CLI, the resume runs, each build
+and query set of phase 13, each ``audio2sheet_align`` run of phase 14,
+each command line of phase 15); each of phases 4-13 and 15 must launch the
+top-k kernel and phase 14 both DTW kernels once for each piece it aligns
+by ``pydtw``, and the ``kernels`` line reports the sum over phases 4-15
+(kernel 2's bf16 launches of phase
 13 among them), beside each kernel's times at the main path's shape
 (top-k: Q = 100, N = 12,000, k = 25; gather: one 6040-px strip, float32,
 its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
@@ -179,8 +202,13 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 
+def _plain(o):
+    """numpy scalars and arrays in an emitted line -> Python values."""
+    return np.asarray(o).tolist()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields}, default=_plain), flush=True)
 
 
 def require_cuda():
@@ -2453,6 +2481,472 @@ def phase_alignment(torch, ctx):
     return launches
 
 
+# --- phase 15: OMR -----------------------------------------------------------
+
+OMR_GOLDEN = os.path.join("tests", "golden", "omr_tutorial_page.npz")
+OMR_NOTE_SHAPE = (256, 512)
+# 15b, the JAX package's own bf16 gate against its float32 arm
+# (tests/test_omr.py::test_omr_precision_ladder_detection_equality_gate)
+OMR_BF16_PX = 2
+OMR_BF16_NOTES = 0.02
+# 15a: the share of the system map's u16 codes that differ from a float64
+# run of the same U-Net may be at most this many times the JAX package's
+# own share (0.42 % of the page, its float32 on the CPU). Two float32
+# orders of summation round about as many codes the other way: the port
+# on the CPU 0.39 %, cuDNN on an H100 at 700 W 0.47 % (PERF.md), so a
+# share of 1e-4 of the pixels off JAX's map is below what any float32
+# order gives (the CPU port: 0.074 %; the card 0.11 %). A TF32 or bf16
+# conv moves codes by far more than 1, which the 1-code gate catches.
+OMR_F32_BAND = 1.5
+TUTORIAL_DIST_ATOL = 1e-3
+UMC_SR = 22050
+BF16_FLOP_PER_S = 989e12   # dense bf16 on the tensor cores (data sheet)
+OMR_DEVICE = "cuda"        # phase 15's device (a CPU rehearsal sets "cpu")
+
+
+def omr_nets(torch, compute_dtype="float32", conv_precision="highest",
+             params=None):
+    """kind -> SegmentationNetwork on the card (the note net at its 256 x
+    512 input), the given float32 weights or the vendored ones."""
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.models import unet
+    from audio_sheet_retrieval_tpu_torch.omr.inference import (
+        SegmentationNetwork,
+    )
+
+    nets = {}
+    for kind in ("system", "bar", "note"):
+        p = params[kind] if params else unet.load_unet_checkpoint(
+            assets.omr_weights_path(kind), OMR_DEVICE)
+        nets[kind] = SegmentationNetwork(
+            p, OMR_NOTE_SHAPE if kind == "note" else (512, 512),
+            compute_dtype=compute_dtype, conv_precision=conv_precision,
+            device=OMR_DEVICE)
+    return nets
+
+
+def omr_detect(nets, prep) -> dict:
+    from audio_sheet_retrieval_tpu_torch.omr.detectors import (
+        OpticalMusicRecognizer,
+    )
+
+    omr = OpticalMusicRecognizer(system_detector=nets["system"],
+                                 bar_detector=nets["bar"],
+                                 note_detector=nets["note"])
+    systems = omr.detect_systems(prep)
+    return {"systems": systems,
+            "bars": omr.detect_bars(prep, systems=systems),
+            "bars_nosys": omr.detect_bars(prep),
+            "notes": omr.detect_notes(prep)}
+
+
+def u16_codes(proba: np.ndarray) -> np.ndarray:
+    return np.round(proba.astype(np.float64) * 65535.0).astype(np.int64)
+
+
+def float64_system_codes(torch, tree: dict, prep: np.ndarray, net):
+    """The system map's u16 codes from a plain float64 run of the same
+    U-Net (the JAX package's forward, written out here) and the same tile
+    blend on the card: the reference both float32 maps are held to. The
+    inputs are the float32 runs' own: the page's u16 codes times the
+    float32 1 / 65535, the float32 window."""
+    import torch.nn.functional as F
+
+    dev = torch.device(OMR_DEVICE)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float64, device=dev)
+
+    def bn(h, b):
+        return (h - t(b["mean"]).view(-1, 1, 1)) * t(
+            b["inv_std"] * b["gamma"]).view(-1, 1, 1) + t(
+            b["beta"]).view(-1, 1, 1)
+
+    def conv_bn(h, b):
+        return bn(F.conv2d(h, t(np.transpose(b["w"], (3, 2, 0, 1))),
+                           padding=1), b)
+
+    def forward(x):
+        h, skips = x, []
+        for i, b in enumerate(tree["enc"]):
+            h = F.elu(conv_bn(h, b))
+            if i % 2 == 1 and i < 7:
+                skips.append(h)
+                h = F.max_pool2d(h, 2, 2)
+        for st, skip in zip(tree["dec"], reversed(skips)):
+            h = F.relu(bn(F.conv_transpose2d(h, t(st["tconv_w"]), stride=2),
+                          st["tconv_bn"]))
+            h = bn(h + skip, st["sum_bn"])
+            h = F.elu(conv_bn(F.elu(conv_bn(h, st["conv1"])), st["conv2"]))
+        w = t(np.transpose(tree["head"]["w"], (3, 2, 0, 1)))
+        return torch.sigmoid((F.conv2d(h, w) + t(tree["head"]["b"]).view(
+            1, -1, 1, 1))[:, 0])
+
+    h, w = prep.shape
+    sh, sw = net.input_shape
+    (top, bottom, left, right), origins = net.tile_origins(h, w)
+    padded = np.pad(prep, ((top, bottom), (left, right)))
+    page = t(np.round(np.clip(padded, 0, 1) * 65535.0).astype(np.float32)
+             * np.float32(1.0 / 65535.0))
+    ham = t(np.sqrt(np.outer(np.hamming(sh), np.hamming(sw))).astype(
+        np.float32))
+    R = torch.zeros_like(page)
+    V = torch.zeros_like(page)
+    with torch.no_grad():
+        for r, c in origins:
+            p = forward(page[None, None, r:r + sh, c:c + sw])[0]
+            R[r:r + sh, c:c + sw] += p * ham
+            V[r:r + sh, c:c + sw] += ham
+    blended = (R / V)[top:top + h, left:left + w].clamp(0, 1)
+    return torch.round(blended * 65535.0).to(torch.int64).cpu().numpy()
+
+
+def unet_work(tree: dict, h: int, w: int):
+    """(multiply-adds, activation bytes in float32) of one U-Net forward at
+    [h, w]: each 3x3 / transposed / head conv's MACs from its weight's
+    shape, and every stage output (conv-BN-ELU fused, pool, transposed
+    conv, the skip sum) written once and read once."""
+    macs, acts = 0, 0
+    for i, b in enumerate(tree["enc"]):
+        kh, kw, ci, co = b["w"].shape
+        macs += h * w * kh * kw * ci * co
+        acts += 2 * h * w * co
+        if i % 2 == 1 and i < 7:
+            h, w = h // 2, w // 2
+            acts += 2 * h * w * co
+    for st in tree["dec"]:
+        ci, co, kh, kw = st["tconv_w"].shape
+        macs += h * w * ci * co * kh * kw
+        h, w = h * kh, w * kw
+        acts += 2 * 2 * h * w * co                  # tconv-BN-ReLU, sum-BN
+        for blk in (st["conv1"], st["conv2"]):
+            kh, kw, ci, co = blk["w"].shape
+            macs += h * w * kh * kw * ci * co
+            acts += 2 * h * w * co
+    kh, kw, ci, co = tree["head"]["w"].shape
+    macs += h * w * kh * kw * ci * co
+    return macs, 4 * (acts + h * w)
+
+
+def kernel_kind(name: str) -> str:
+    """A device activity's kind, by its kernel name (cuDNN / ATen)."""
+    low = name.lower()
+    if "dgrad" in low:
+        return "transposed conv"
+    if "pool" in low:
+        return "pool"
+    if any(k in low for k in ("fprop", "conv", "gemm", "winograd", "xmma",
+                              "cutlass", "implicit")):
+        return "conv"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "layout"
+    if "elementwise" in low:
+        return "elementwise"
+    if low.startswith(("memcpy", "memset")):
+        return "copy"
+    return "other"
+
+
+def omr_device_breakdown(torch, net, prep) -> dict:
+    """One page through ``net`` under torch.profiler: device ms by kind
+    (the U-Net's kernels, the blend's slice-adds among the elementwise
+    ones), the blend and tile gather alone, and the top kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def by_kind(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kinds, names = {}, {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = ev.time_range.elapsed_us() / 1000.0
+            k = kernel_kind(ev.name)
+            kinds[k] = kinds.get(k, 0.0) + ms
+            names[ev.name[:80]] = names.get(ev.name[:80], 0.0) + ms
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+        return kinds, [{"name": n, "device_ms": v} for n, v in top]
+
+    (top, bottom, left, right), origins = net.tile_origins(*prep.shape)
+    sh, sw = net.input_shape
+    tiles = torch.zeros((len(origins), 1, sh, sw), device=OMR_DEVICE)
+    page_kinds, top_names = by_kind(lambda: net.predict_proba(prep))
+    unet_kinds, _ = by_kind(lambda: net.net(tiles))
+    total = sum(page_kinds.values())
+    rest = total - sum(unet_kinds.values())
+    return {"page_device_ms": total, "by_kind_ms": page_kinds,
+            "unet_device_ms": sum(unet_kinds.values()),
+            "unet_by_kind_ms": unet_kinds,
+            "blend_and_wire_device_ms": rest,
+            "blend_and_wire_share": rest / total, "top": top_names}
+
+
+def write_wav(path: str, signal_i16: np.ndarray, sr: int = UMC_SR) -> None:
+    import wave
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(np.asarray(signal_i16, "<i2").tobytes())
+
+
+def build_umc_dir(root: str, page: np.ndarray) -> str:
+    """``tests/test_umc.py::umc_dataset``'s two pieces from ``page``: A the
+    page, B the page with its top half white, an 8 s sine chord as each
+    piece's score_ppq.wav and 01_performance.wav (the recipe of
+    ``scripts/jax_omr_golden.py``, which made the golden ranks)."""
+    from audio_sheet_retrieval_tpu_torch.utils.image_io import imwrite_gray
+
+    page_b = page.copy()
+    page_b[: page.shape[0] // 2] = 255
+    t = np.arange(UMC_SR * 8) / UMC_SR
+    for name, img, freqs in (("PieceA", page, (262.0, 330.0, 392.0)),
+                             ("PieceB", page_b, (220.0, 277.0, 440.0))):
+        os.makedirs(os.path.join(root, name, "sheet"))
+        imwrite_gray(os.path.join(root, name, "sheet", "01.png"), img)
+        sig = sum(0.2 * np.sin(2 * np.pi * f * t) for f in freqs)
+        write_wav(os.path.join(root, name, "score_ppq.wav"),
+                  (sig * 20000).astype(np.int16))
+        write_wav(os.path.join(root, name, "01_performance.wav"),
+                  (sig * 18000).astype(np.int16))
+    return root
+
+
+def quiet(fn):
+    """``fn()`` with its standard output captured -> (result, text)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn()
+    return res, out.getvalue()
+
+
+def phase_omr(torch, ctx):
+    """15. OMR on the card: the three vendored U-Nets on the tutorial page
+    against the JAX package's golden (f32 highest and high, bf16 under
+    JAX's bf16 gate), the tutorial, the UMC command lines and
+    ``prepare_umc_data``, then page times beside their bounds."""
+    import ctypes
+    import shutil
+
+    import yaml
+
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.cli import (
+        prepare_umc_data,
+        tutorial,
+        umc_a2s_server,
+        umc_s2a_server,
+    )
+    from audio_sheet_retrieval_tpu_torch.omr.inference import prepare_image
+    from audio_sheet_retrieval_tpu_torch.utils.image_io import (
+        imread_gray,
+        imwrite_gray,
+        resize_linear_u8,
+    )
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in read_launches()}
+    count = launch_counter(launches)
+    with np.load(OMR_GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    page = tutorial.resize_page(imread_gray(assets.tutorial_sheet_path()))
+    prep = prepare_image(page)
+
+    # a. f32 highest: detections equal to JAX's; the system map's codes
+    nets = omr_nets(torch)
+    found = omr_detect(nets, prep)
+    for key in ("systems", "bars", "bars_nosys", "notes"):
+        np.testing.assert_array_equal(found[key], golden["full_" + key],
+                                      err_msg="15a " + key)
+    codes = u16_codes(nets["system"].predict_proba(prep))
+    want = golden["full_system_codes"].astype(np.int64)
+    ref64 = float64_system_codes(torch, nets["system"].params.to_numpy(),
+                                 prep, nets["system"])
+    diff = np.abs(codes - want)
+    share = {"card_vs_jax": float((diff > 0).mean()),
+             "card_vs_float64": float((codes != ref64).mean()),
+             "jax_vs_float64": float((want != ref64).mean())}
+    high = omr_nets(torch, "float32", "high",
+                    {k: n.params for k, n in nets.items()})
+    codes_high = u16_codes(high["system"].predict_proba(prep))
+    emit("omr", check="a. f32 highest vs the JAX golden", systems=len(
+        found["systems"]), bars=len(found["bars"]),
+        notes=len(found["notes"]), detections_equal=True,
+        max_code_diff=int(diff.max()), codes_differing=int((diff > 0).sum()),
+        pixels=int(diff.size), share=share,
+        max_code_diff_float64=int(np.abs(codes - ref64).max()),
+        high_identical=bool(np.array_equal(codes_high, codes)))
+    assert len(found["systems"]) == 6
+    assert diff.max() <= 1, diff.max()
+    # a float32 map may round a code the other way wherever float32 lands
+    # within its rounding of a half-code: held to the float32 band of the
+    # JAX package's own map (see OMR_F32_BAND)
+    assert share["card_vs_float64"] <= \
+        OMR_F32_BAND * share["jax_vs_float64"], share
+    assert np.array_equal(codes_high, codes), "high differs from highest"
+
+    # b. bf16 against the f32 run, JAX's bf16 gate
+    bf16 = omr_nets(torch, "bfloat16", "default",
+                    {k: n.params for k, n in nets.items()})
+    got = omr_detect(bf16, prep)
+    sys_dev = np.abs(got["systems"].astype(int)
+                     - found["systems"].astype(int)).max() \
+        if got["systems"].shape == found["systems"].shape else None
+    bars_dev = np.abs(np.asarray(got["bars"], float)
+                      - np.asarray(found["bars"], float)).max() \
+        if np.shape(got["bars"]) == np.shape(found["bars"]) else None
+    p32 = nets["system"].predict_proba(prep)
+    p16 = bf16["system"].predict_proba(prep)
+    emit("omr", check="b. bf16 vs f32 (JAX's bf16 gate)",
+         systems=len(got["systems"]), system_corner_dev_px=sys_dev,
+         bars=len(got["bars"]), bar_dev_px=bars_dev,
+         notes=len(got["notes"]), notes_f32=len(found["notes"]),
+         system_map_max_dev=float(np.abs(p16 - p32).max()),
+         system_map_flip_share=float(
+             np.logical_xor(p16 > 0.5, p32 > 0.5).mean()))
+    assert sys_dev is not None and sys_dev <= OMR_BF16_PX, sys_dev
+    assert len(got["bars"]) == len(found["bars"])
+    assert bars_dev is not None and bars_dev <= OMR_BF16_PX, bars_dev
+    assert abs(len(got["notes"]) - len(found["notes"])) <= \
+        OMR_BF16_NOTES * len(found["notes"])
+    assert np.abs(p16 - p32).max() > 1e-4, "the bf16 arm ran float32"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # c. the tutorial, synthesized audio (and the mp3 where it decodes)
+        dists_path = os.path.join(tmp, "dists.npy")
+        t0 = time.perf_counter()
+        dists, said = quiet(lambda: count(lambda: tutorial.main(
+            ["--synth_audio", "--save_dists", dists_path, "--device",
+             OMR_DEVICE])))
+        tut_s = time.perf_counter() - t0
+        n_sys = [ln for ln in said.splitlines()
+                 if ln.startswith("detected systems:")]
+        dist_err = float(np.abs(dists - golden["full_tutorial_dists"]).max())
+        try:
+            ctypes.CDLL("libmpg123.so.0")
+            mp3 = True
+        except OSError:
+            mp3 = False
+        print("15c audio:", "synthesized and the tutorial mp3" if mp3
+              else "synthesized only (libmpg123.so.0 does not load)",
+              flush=True)
+        mp3_stats = None
+        if mp3:
+            mp3_dists, mp3_said = quiet(lambda: count(
+                lambda: tutorial.main(["--device", OMR_DEVICE])))
+            mp3_stats = {"shape": list(mp3_dists.shape),
+                         "finite": bool(np.isfinite(mp3_dists).all()),
+                         "systems": [ln for ln in mp3_said.splitlines()
+                                     if ln.startswith("detected")]}
+            assert mp3_stats["finite"], mp3_stats
+        emit("omr", check="c. tutorial", systems_line=n_sys,
+             max_dist_err=dist_err, seconds=tut_s, mp3=mp3_stats)
+        assert n_sys == ["detected systems: 6"], n_sys
+        assert dists.shape == (100, 100) and dist_err <= \
+            TUTORIAL_DIST_ATOL, dist_err
+
+        # d. the UMC command lines over the two-piece directory
+        data = build_umc_dir(os.path.join(tmp, "umc"), page)
+        ckpt = assets.tutorial_checkpoint_path()
+        dset = os.path.basename(data)
+        runs = {}
+        cwd = os.getcwd()
+        os.chdir(tmp)    # the vendored checkpoint's yaml dumps go to cwd
+        try:
+            for key, cli, extra in (
+                    ("a2s_host", umc_a2s_server, ["--init_sheet_db"]),
+                    ("a2s_device", umc_a2s_server,
+                     ["--init_sheet_db", "--device_db"]),
+                    ("s2a", umc_s2a_server,
+                     ["--init_audio_db", "--device_db"])):
+                t0 = time.perf_counter()
+                ranks, _ = quiet(lambda: count(lambda: cli.main(
+                    ["--data_dir", data, "--param_file", ckpt,
+                     "--db_file", os.path.join(tmp, key + ".pkl"),
+                     "--full_eval", "--dump_results", "--device",
+                     OMR_DEVICE] + extra)))
+                secs = time.perf_counter() - t0
+                suffix = "S2A" if key == "s2a" else "A2S"
+                dumped = os.path.join(
+                    tmp, "umc_retrieval_tutorial_checkpoint_%s_%s.yaml"
+                    % (dset, suffix))
+                with open(dumped) as fp:
+                    read_back = yaml.safe_load(fp)
+                os.remove(dumped)
+                runs[key] = {"ranks": [int(r) for r in ranks],
+                             "seconds_a_piece": secs / 2,
+                             "yaml_read_back": read_back}
+        finally:
+            os.chdir(cwd)
+        for key, run in runs.items():
+            run["jax_ranks"] = [int(r) for r in golden[f"full_{key}_ranks"]]
+        # prepare_umc_data on a copy at width 1200
+        wide_dir = os.path.join(tmp, "wide")
+        shutil.copytree(data, wide_dir)
+        wide = resize_linear_u8(page, (1200, int(1200 / 835 * page.shape[0])))
+        for piece in ("PieceA", "PieceB"):
+            imwrite_gray(os.path.join(wide_dir, piece, "sheet", "01.png"),
+                         wide)
+        n_resized, _ = quiet(lambda: prepare_umc_data.main(
+            ["--data_dir", wide_dir]))
+        want_page = resize_linear_u8(wide, (835, int(835 / 1200
+                                                     * wide.shape[0])))
+        prepared = [np.array_equal(imread_gray(os.path.join(
+            wide_dir, p, "sheet", "01.png")), want_page)
+            for p in ("PieceA", "PieceB")]
+        emit("omr", check="d. UMC command lines", runs=runs,
+             prepare_umc_data_resized=n_resized,
+             prepare_umc_data_pages_equal=prepared)
+        for key, run in runs.items():
+            assert run["ranks"] == run["jax_ranks"], (key, run)
+            assert run["yaml_read_back"] == run["ranks"], (key, run)
+        assert n_resized == 2 and all(prepared), (n_resized, prepared)
+    assert launches["topk_gallery"] > 0, "the UMC servers ran no top-k"
+
+    # e. times on the card, at 15 tiles a page
+    tree = nets["system"].params.to_numpy()
+    n_tiles = len(nets["system"].tile_origins(*prep.shape)[1])
+    macs, act_bytes = unet_work(tree, *nets["system"].input_shape)
+    flops = 2.0 * macs * n_tiles
+    times = {}
+    for arm, arm_nets in (("float32", nets), ("bfloat16", bf16)):
+        per_net = {}
+        for kind, net in arm_nets.items():
+            ms = cuda_ms(lambda: net.predict_proba(prep), iters=10,
+                         warmup=2)
+            tiles = len(net.tile_origins(*prep.shape)[1])
+            per_net[kind] = {"page_ms": ms, "tiles": tiles,
+                             "tiles_per_s": tiles / ms * 1e3}
+        torch.cuda.reset_peak_memory_stats()
+        arm_nets["system"].predict_proba(prep)
+        torch.cuda.synchronize()
+        times[arm] = {
+            "per_net": per_net,
+            "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "system_net_device": omr_device_breakdown(
+                torch, arm_nets["system"], prep)}
+    # the page in and the map out once (the function's own bytes) against
+    # its multiply-adds; the activations' traffic beside it
+    bound_ms, bound_by = bound(n_tiles * 2 * 512 * 512 * 4, flops)
+    emit("omr", check="e. page times", times=times,
+         bound={"flops_a_page": flops, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "bf16_ops_ms": flops / BF16_FLOP_PER_S * 1e3,
+                "activation_bytes_a_page": act_bytes * n_tiles,
+                "activation_ms_at_3.35TB/s":
+                act_bytes * n_tiles / HBM_BYTES_PER_S * 1e3},
+         launches=launches, phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     torch = require_cuda()
     smi = phase_device(torch)
@@ -2461,7 +2955,7 @@ def main() -> int:
     ctx, launches = phase_serving(torch)
     for phase in (phase_s2a, phase_streaming, phase_audio,
                   phase_eval_refine, phase_train, phase_device_pool,
-                  phase_precision, phase_alignment):
+                  phase_precision, phase_alignment, phase_omr):
         for name, n in phase(torch, ctx).items():
             launches[name] += n
     rows = []

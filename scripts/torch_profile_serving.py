@@ -19,7 +19,10 @@ against the serving gallery (the exact build in float32, the
 bench.py:714-719), ``--queries`` sheet -> audio queries (raw strip upload,
 against the corpus's audio DB built on the card) and ``--stream_frames``
 frames of streaming in chunks of 8 (``StreamingRetriever.push_frames``
-against the serving gallery). For each window it reports
+against the serving gallery), and an OMR window: the tutorial page
+through the three vendored U-Nets (system, bar, note) in the same numerics
+(bf16 as the JAX package's bf16 OMR arm), each with its device time by
+kind. For each window it reports
 
 - ``wall_ms``: host clock from the window's start to a synchronise at its
   end (the profiler's own host overhead included);
@@ -101,6 +104,35 @@ def profiled(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000.0
     return device_summary(prof, wall_ms)
+
+
+def omr_window(compute_dtype: str, conv_precision: str) -> dict:
+    """Each OMR net on the tutorial page: the profiled page (device busy,
+    top kernels), its device time by kind (``chip_smoke.
+    omr_device_breakdown``: the U-Net's convs, transposed convs,
+    elementwise ops and pools, and the blend with the wires beside it) and
+    the page's unprofiled event time."""
+    import chip_smoke
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.cli.tutorial import resize_page
+    from audio_sheet_retrieval_tpu_torch.omr.inference import prepare_image
+    from audio_sheet_retrieval_tpu_torch.utils.image_io import imread_gray
+
+    prep = prepare_image(resize_page(imread_gray(
+        assets.tutorial_sheet_path())))
+    if compute_dtype == "bfloat16":
+        conv_precision = "default"   # the JAX package's bf16 OMR arm
+    out = {}
+    for kind, net in chip_smoke.omr_nets(torch, compute_dtype,
+                                         conv_precision).items():
+        net.predict_proba(prep)   # warm-up: cuDNN plans
+        out[kind] = dict(
+            profiled(lambda: net.predict_proba(prep)),
+            page_event_ms=chip_smoke.cuda_ms(lambda: net.predict_proba(prep),
+                                             iters=10, warmup=2),
+            tiles=len(net.tile_origins(*prep.shape)[1]),
+            breakdown=chip_smoke.omr_device_breakdown(torch, net, prep))
+    return out
 
 
 def main(argv=None) -> int:
@@ -237,8 +269,11 @@ def main(argv=None) -> int:
     q["per_push_wall_ms"] = q["wall_ms"] / n_push
     q["per_push_device_busy_ms"] = q["device_busy_ms"] / n_push
     result["stream_chunk8"] = q
+    # OMR: the tutorial page (15 tiles a 512 x 512 net, 27 for the note
+    # net's 256 x 512) through the three vendored U-Nets in these numerics
+    result["omr"] = omr_window(args.compute_dtype, args.conv_precision)
     for name in ("build_exact", "build_gather_half", "build_fullconv",
-                 "queries", "s2a_queries", "stream_chunk8"):
+                 "queries", "s2a_queries", "stream_chunk8", "omr"):
         print(name, json.dumps(result[name]), flush=True)
 
     # per-stage host clock of one query, synchronised between stages

@@ -59,13 +59,28 @@ def test_no_import_of_the_jax_package(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_of_image_libraries(path):
+    """Pages are read, written and resized in numpy (``utils/image_io.py``)
+    and the detectors' morphology is scipy: no OpenCV, PIL, torchvision or
+    scikit-image on any path of the port."""
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in ("cv2", "PIL", "torchvision", "skimage")]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
 def test_port_sources_are_found():
     names = {os.path.relpath(p, REPO) for p in PORT_SOURCES}
     assert "chip_smoke.py" in names
     for module in ("data/pools.py", "data/msmd.py", "ops/dtw.py",
                    "retrieval/alignment.py", "cli/audio2sheet_align.py",
                    "cli/alignment_video.py", "cli/export_msmd_npz.py",
-                   "utils/audio_io.py", "utils/flac_native.py"):
+                   "utils/audio_io.py", "utils/flac_native.py",
+                   "models/unet.py", "omr/inference.py", "omr/detectors.py",
+                   "utils/image_io.py", "retrieval/umc.py", "cli/tutorial.py",
+                   "cli/umc_a2s_server.py", "cli/umc_s2a_server.py",
+                   "cli/prepare_umc_data.py"):
         assert os.path.join("audio_sheet_retrieval_tpu_torch",
                             *module.split("/")) in names, module
 
@@ -312,6 +327,17 @@ def test_assets_read_by_path_match_jax():
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["system", "bar", "note"])
+def test_omr_asset_paths_match_jax(kind):
+    assert tassets.omr_weights_path(kind) == jassets.omr_weights_path(kind)
+    assert tassets.has_asset(f"omr_{kind}.npz")
+    assert not tassets.has_asset(f"omr_{kind}.missing")
+    assert tassets.tutorial_sheet_path() == jassets.tutorial_sheet_path()
+    assert tassets.tutorial_audio_path() == jassets.tutorial_audio_path()
+    with pytest.raises(ValueError):
+        tassets.omr_weights_path("staff")
 
 
 @pytest.mark.parametrize("n_perf", [1, 2])
