@@ -160,7 +160,7 @@ def build_arg_parser():
     parser = argparse.ArgumentParser(
         description="Run audio 2 sheet music retrieval service (PyTorch).")
     parser.add_argument("--model", default="mutopia_ccal_cont_rsz")
-    parser.add_argument("--data", default="synthetic")
+    parser.add_argument("--data", default="mutopia")
     parser.add_argument("--device", default="cuda",
                         help="torch device the model and gallery live on")
     parser.add_argument("--estimate_UV", action="store_true")

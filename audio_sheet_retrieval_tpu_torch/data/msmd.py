@@ -177,9 +177,9 @@ def load_piece_npz(path: str):
     return image, specs, o2cs
 
 
-def load_piece_list(piece_names: List[str], npz_dir: Optional[str] = None,
-                    aug_config=NO_AUGMENT,
-                    collection_dir: Optional[str] = None):
+def load_piece_list(piece_names: List[str], aug_config=NO_AUGMENT,
+                    collection_dir: Optional[str] = None,
+                    npz_dir: Optional[str] = None):
     """Per-piece loop with defensive skip (reference mutopia_data.py:21-44):
     from ``npz_dir`` when given, else from the MSMD collection."""
     all_images, all_specs, all_o2c = [], [], []

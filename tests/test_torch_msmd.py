@@ -125,6 +125,28 @@ def test_load_piece_list_from_the_stub_matches_jax(msmd_stub):
         assert_pieces_equal([g[p] for g in got], [w[p] for w in want])
 
 
+@pytest.mark.parametrize("source", ["collection", "npz"])
+def test_load_piece_list_takes_jax_argument_order(msmd_stub, tmp_path,
+                                                  source):
+    """A positional call in the JAX package's order (piece names,
+    augmentation, collection, npz directory) loads the same pieces through
+    both loaders; in the old order of the port's the augmentation dict was
+    taken for the npz directory and every piece was skipped."""
+    names = ["StubPiece_A", "StubPiece_B"]
+    if source == "npz":
+        for name in names:
+            texport.export_piece(COLLECTION, name, str(tmp_path),
+                                 jpools.FULL_AUGMENT)
+        args = (names, jpools.FULL_AUGMENT, None, str(tmp_path))
+    else:
+        args = (names, jpools.FULL_AUGMENT, COLLECTION)
+    got = tmsmd.load_piece_list(*args)
+    want = jmsmd.load_piece_list(*args)
+    assert len(got[0]) == len(want[0]) == 2
+    for p in range(2):
+        assert_pieces_equal([g[p] for g in got], [w[p] for w in want])
+
+
 def _split(tmp_path):
     split = dict(train=["StubPiece_A", "StubPiece_B", "StubPiece_Ragged"],
                  valid=["StubPiece_C"],

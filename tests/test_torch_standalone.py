@@ -249,7 +249,8 @@ def test_select_data_npz_bit_for_bit(tmp_path, pieces):
                 assert got[name] is None
                 continue
             _assert_pools_equal(got[name], want[name], (slice(0, 50),))
-    im, sp, oc = tmsmd.load_piece_list(["p0", "missing", "p2"], str(tmp_path))
+    im, sp, oc = tmsmd.load_piece_list(["p0", "missing", "p2"],
+                                       npz_dir=str(tmp_path))
     assert len(im) == len(sp) == len(oc) == 2
 
 
