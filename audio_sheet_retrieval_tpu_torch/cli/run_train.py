@@ -37,6 +37,7 @@ from audio_sheet_retrieval_tpu_torch.data.iterators import (
 from audio_sheet_retrieval_tpu_torch.data.msmd import select_data
 from audio_sheet_retrieval_tpu_torch.models import cca_model, lasagne_import
 from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
+from audio_sheet_retrieval_tpu_torch.parallel.mesh import process_index
 from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
     load_checkpoint_tree,
 )
@@ -156,7 +157,11 @@ def main(argv=None):
         valid_batch_iter = device_pool.DeviceBatchIterator(
             batch_size=model_cfg.batch_size, shuffle=False, train=False)
 
-    if not args.resume and os.path.exists(state_file):
+    # only rank 0 touches the snapshot (the JAX CLI's guards): under
+    # torch.distributed every rank runs this script, and fit decides the
+    # resume from rank 0's view of the file
+    if not args.resume and os.path.exists(state_file) \
+            and process_index() == 0:
         os.remove(state_file)  # fresh run: a stale snapshot must not resume
 
     best_params, best_map = engine.fit(
@@ -168,7 +173,7 @@ def main(argv=None):
     # (budget spent or early stop) leaves none behind, or a later --resume
     # would restore the finished bookkeeping and train zero epochs; a
     # killed process never gets here and keeps its snapshot
-    if os.path.exists(state_file):
+    if process_index() == 0 and os.path.exists(state_file):
         os.remove(state_file)
     print("Best validation MAP: %.2f" % (100 * best_map))
     return best_params, best_map

@@ -160,13 +160,26 @@ class DevicePool:
         rng: Optional[np.random.Generator] = None,
         shuffle: bool = True,
         device="cuda",
+        mesh=None,
+        host_only: bool = False,
     ):
+        """``mesh`` (a ``parallel.mesh.DataMesh``): the dataset is
+        replicated on every rank, on the mesh's device; every rank draws
+        the same global batch (the same ``rng`` seed on every rank gives
+        the same order and device generator) and assembles only its slice
+        of it (the JAX package's ``mesh=`` arm, its :148-159).
+        ``host_only``: keep the strip and spectrogram planes as numpy
+        arrays on the host, for callers that need only the entity
+        arithmetic (``parallel.sharded_pool``)."""
         self.spec_context = spec_context
         self.sheet_context = sheet_context
         self.staff_height = staff_height
         self.data_augmentation = dict(data_augmentation or NO_AUGMENT)
         self.rng = rng if rng is not None else np.random.default_rng()
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(
+            "cpu" if host_only else mesh.device if mesh is not None
+            else device)
 
         margin_x = 2 * sheet_context
         margin_t = spec_context
@@ -237,8 +250,11 @@ class DevicePool:
         if shuffle:
             self.reset_batch_generator()
 
-        self.strip = torch.from_numpy(big_strip).to(self.device)
-        self.spec = torch.from_numpy(big_spec).to(self.device)
+        if host_only:
+            self.strip, self.spec = big_strip, big_spec
+        else:
+            self.strip = torch.from_numpy(big_strip).to(self.device)
+            self.spec = torch.from_numpy(big_spec).to(self.device)
         self.strip_h = strip_h
         self.bins = bins
         # the JAX package seeds its PRNG key with this draw (:257); the
@@ -259,9 +275,15 @@ class DevicePool:
     def assemble(self, coords: torch.Tensor, onsets: torch.Tensor,
                  train: bool = True):
         """Draw and assemble the batch of the entities at absolute
-        ``coords`` / ``onsets`` ([B] int32 on the pool's device)."""
+        ``coords`` / ``onsets`` ([B] int32 on the pool's device); with a
+        mesh, the global batch's draws are made and this rank's slice is
+        assembled."""
         draws = draw(self.generator, coords.shape[0], self.data_augmentation,
                      train)
+        if self.mesh is not None:
+            coords, onsets = self.mesh.shard(coords), self.mesh.shard(onsets)
+            draws = Draws(*(d if d is None else self.mesh.shard(d)
+                            for d in draws))
         return self._assemble(self.strip, self.spec, coords, onsets, draws,
                               train)
 
@@ -294,7 +316,7 @@ def make_epoch_runner(cfg, pool: DevicePool):
     the loop body can be captured in a CUDA graph."""
     from audio_sheet_retrieval_tpu_torch.train.engine import make_train_step
 
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, pool.mesh)
 
     def runner(state, entity_idx: np.ndarray):
         coords = pool.put(pool.entity_coords[entity_idx])
@@ -316,7 +338,7 @@ def make_embed_runner(cfg, pool: DevicePool):
     (``TrainParams.fold()``) and eval-mode assembly (no augmentation)."""
     from audio_sheet_retrieval_tpu_torch.train.engine import make_eval_fns
 
-    valid_loss = make_eval_fns(cfg)[1]
+    valid_loss = make_eval_fns(cfg, pool.mesh)[1]
 
     def runner(params, entity_idx: np.ndarray):
         coords = pool.put(pool.entity_coords[entity_idx])

@@ -220,18 +220,27 @@ def init_model(generator: torch.Generator, cfg: ModelConfig, *,
 
 
 def forward_train(params: TrainParams, x1: torch.Tensor, x2: torch.Tensor,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, mesh=None):
     """Training forward of both views (JAX ``models/cca_model.py:60-104``).
 
     -> (lv1, lv2, new_state, corr): L2-normalized projected latents, the
     ``NewState`` (BN EMA and CCA state; ``params`` is not changed), and the
     monitored canonical correlations.
+
+    With a ``parallel.mesh.DataMesh``, ``x1`` / ``x2`` are this rank's
+    slices of the global batch: BN takes the global batch's statistics,
+    the encoder outputs are gathered (``DataMesh.gather``), and the CCA
+    layer and everything after it run on the whole global batch on every
+    rank (the JAX step computes over the global batch under any sharding,
+    its ``train/engine.py:261-263``); lv1 / lv2 are the global batch's.
     """
     mode = check_numerics(cfg)
     h1, bn1 = params.view1.forward_train(x1, cfg.bn_epsilon, cfg.bn_alpha,
-                                         mode)
+                                         mode, mesh)
     h2, bn2 = params.view2.forward_train(x2, cfg.bn_epsilon, cfg.bn_alpha,
-                                         mode)
+                                         mode, mesh)
+    if mesh is not None:
+        h1, h2 = mesh.gather(h1), mesh.gather(h2)
     state = params.cca
     if cfg.use_ccal:
         # polar whitening changes the monitored corr; with a nonzero

@@ -186,6 +186,24 @@ class TrainBlock(nn.Module):
 BNStats = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
+def batch_moments(h: torch.Tensor, mesh=None):
+    """-> (biased variance, mean) per channel of [B, C, H, W] over (B, H,
+    W). With a ``parallel.mesh.DataMesh`` of more than one rank, ``h`` is
+    this rank's slice and the moments are the global batch's, in two
+    passes as JAX's mean and var are computed: the per-channel sum summed
+    over the ranks, then the sum of squared deviations from that mean;
+    both sums differentiable across the ranks. On one rank the local
+    moments are the global ones, computed as without a mesh (so a
+    one-rank group trains bit for bit as no group)."""
+    if mesh is None or mesh.world_size == 1:
+        return torch.var_mean(h, dim=(0, 2, 3), correction=0)
+    n = h.shape[0] * h.shape[2] * h.shape[3] * mesh.world_size
+    mu = mesh.all_reduce_sum(h.sum(dim=(0, 2, 3))) / n
+    dev = h - mu[:, None, None]
+    var = mesh.all_reduce_sum((dev * dev).sum(dim=(0, 2, 3))) / n
+    return var, mu
+
+
 class TrainEncoder(nn.Module):
     """One view's encoder with BN apart from the convs: [B, C, H, W] ->
     [B, dim_latent]. ``forward_train`` uses batch statistics; ``forward``
@@ -203,7 +221,7 @@ class TrainEncoder(nn.Module):
             for i, (ci, co) in enumerate(zip(c_ins, chans)))
 
     def _run(self, x: torch.Tensor, stats: Optional[BNStats],
-             bn_epsilon: float = 1e-4, mode: str = HIGHEST):
+             bn_epsilon: float = 1e-4, mode: str = HIGHEST, mesh=None):
         h = x
         for i, blk in enumerate(self.blocks):
             pad = blk.w.shape[-1] // 2
@@ -222,7 +240,7 @@ class TrainEncoder(nn.Module):
             if stats is None:
                 mu, inv_std = blk.mean, blk.inv_std
             else:
-                var, mu = torch.var_mean(h, dim=(0, 2, 3), correction=0)
+                var, mu = batch_moments(h, mesh)
                 inv_std = torch.rsqrt(var + bn_epsilon)
                 stats.append((mu.detach(), inv_std.detach()))
             h = ((h - mu[:, None, None]) * (inv_std * blk.gamma)[:, None, None]
@@ -239,14 +257,17 @@ class TrainEncoder(nn.Module):
         return self._run(x, None, mode=mode)
 
     def forward_train(self, x: torch.Tensor, bn_epsilon: float = 1e-4,
-                      bn_alpha: float = 1e-2, mode: str = HIGHEST):
+                      bn_alpha: float = 1e-2, mode: str = HIGHEST,
+                      mesh=None):
         """-> (latent, new running statistics): batch-statistics BN; the new
         ``(mean, inv_std)`` of each block are the EMA of the running ones
         with the batch's, detached, for ``set_bn_stats`` to write back.
         Master weights, BN state and the statistics stay float32 in every
-        ``mode``."""
+        ``mode``. With a ``parallel.mesh.DataMesh``, ``x`` is this rank's
+        slice of the global batch and the statistics are the global
+        batch's (``batch_moments``); the latent is this rank's slice."""
         batch: BNStats = []
-        latent = self._run(x, batch, bn_epsilon, mode)
+        latent = self._run(x, batch, bn_epsilon, mode, mesh)
         new = [((1.0 - bn_alpha) * blk.mean + bn_alpha * mu,
                 (1.0 - bn_alpha) * blk.inv_std + bn_alpha * inv_std)
                for blk, (mu, inv_std) in zip(self.blocks, batch)]

@@ -28,7 +28,15 @@ then the new BN and CCA running state written into the params (in place:
 the params, the optimizer and the step count of a ``TrainState`` are
 updated where they are). Evaluation embeds through the folded eval model
 (``TrainParams.fold``); the best snapshot and the dump are the unfolded
-train params. The JAX package's mesh arms are not ported here.
+train params.
+
+Data parallelism (``fit(..., mesh=...)``, a ``parallel.mesh.DataMesh``): one
+process a card; every rank runs the same fit on its slice of each global
+batch. The step is the global batch's on every rank (BN statistics summed
+over the ranks, the CCA layer and the loss on the gathered codes, the
+gradients summed: ``make_train_step``), the evaluation is replicated, and
+rank 0's epoch numbers are broadcast so every rank takes the same early-stop
+and refinement decisions. Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ from audio_sheet_retrieval_tpu_torch.ops.metrics import (
     eval_retrieval,
     summarise_ranks,
 )
+from audio_sheet_retrieval_tpu_torch.parallel import sharded_pool
 from audio_sheet_retrieval_tpu_torch.train import state as ts
 from audio_sheet_retrieval_tpu_torch.utils import io as uio
 from audio_sheet_retrieval_tpu_torch.utils.logging import BColors
@@ -99,35 +108,53 @@ def prepare_view2_device(x2: torch.Tensor) -> torch.Tensor:
 
 
 def train_loss(params: TrainParams, x1: torch.Tensor, x2: torch.Tensor,
-               cfg: ModelConfig):
+               cfg: ModelConfig, mesh=None):
     """The training objective of one raw batch -> (loss, new running
     state, corr): the contrastive cosine loss weighted 1 - weight_tno,
     minus mean(corr) * weight_tno (the CCALayer corr loss, lasagne
     cca.py:163), plus the L2 / L1 penalties over the trainable set. The
     loss is differentiable in ``params``' parameters; ``params`` is not
-    changed."""
+    changed.
+
+    With a ``parallel.mesh.DataMesh``, ``x1`` / ``x2`` are this rank's
+    slice and the loss is the global batch's, the same on every rank; the
+    gradient of this rank's backward is its share, and the shares sum to
+    the global gradient (``DataMesh.all_reduce_grads``). The penalties
+    depend on the parameters alone, so only rank 0's backward carries
+    their gradient."""
     lv1, lv2, new_state, corr = cca_model.forward_train(
-        params, prepare_view1_device(x1, cfg), prepare_view2_device(x2), cfg)
+        params, prepare_view1_device(x1, cfg), prepare_view2_device(x2), cfg,
+        mesh)
     obj = losses.contrastive_cos_loss(lv1, lv2, weight=1.0 - cfg.weight_tno,
                                       gamma=cfg.gamma)
     obj = obj - corr.mean() * cfg.weight_tno
     trainable = list(params.parameters())
+    rank0 = mesh is None or mesh.rank == 0
+
+    def penalty(t):
+        return t if rank0 else t.detach()
+
     if cfg.l2:
-        obj = obj + cfg.l2 * ts.l2_penalty(trainable)
+        obj = obj + penalty(cfg.l2 * ts.l2_penalty(trainable))
     if cfg.l1:
-        obj = obj + cfg.l1 * ts.l1_penalty(trainable)
+        obj = obj + penalty(cfg.l1 * ts.l1_penalty(trainable))
     return obj, new_state, corr
 
 
-def make_train_step(cfg: ModelConfig):
+def make_train_step(cfg: ModelConfig, mesh=None):
     """-> ``train_step(state, x1, x2)``: loss, backward, one Adam step, the
     new BN and CCA state written back; returns ``{"loss", "corr"}`` as
-    device tensors (nothing is downloaded)."""
+    device tensors (nothing is downloaded). With a
+    ``parallel.mesh.DataMesh``, ``x1`` / ``x2`` are this rank's slice of
+    the global batch and the gradients are summed over the ranks before
+    the step, so every rank takes the same step."""
 
     def train_step(state: ts.TrainState, x1, x2):
-        loss, new_state, corr = train_loss(state.params, x1, x2, cfg)
+        loss, new_state, corr = train_loss(state.params, x1, x2, cfg, mesh)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh.all_reduce_grads(state.params.parameters())
         state.optimizer.step()
         state.params.write_state(new_state)
         state.step += 1
@@ -136,9 +163,11 @@ def make_train_step(cfg: ModelConfig):
     return train_step
 
 
-def make_eval_fns(cfg: ModelConfig):
+def make_eval_fns(cfg: ModelConfig, mesh=None):
     """-> (embed_pair, valid_loss, init_cca_step). The first two take the
-    folded eval ``ModelParams`` (``TrainParams.fold()``)."""
+    folded eval ``ModelParams`` (``TrainParams.fold()``). With a
+    ``parallel.mesh.DataMesh``, ``valid_loss`` and ``init_cca_step`` take
+    this rank's slice of a global batch (``embed_pair`` is per sample)."""
 
     def embed_pair(params: ModelParams, x1, x2):
         lv1 = cca_model.embed_view1(params, prepare_view1_device(x1, cfg),
@@ -148,7 +177,11 @@ def make_eval_fns(cfg: ModelConfig):
 
     @torch.no_grad()
     def valid_loss(params: ModelParams, x1, x2):
+        """-> (loss, lv1, lv2) of the batch; with a mesh, of the global
+        batch, gathered from this rank's slice."""
         lv1, lv2 = embed_pair(params, x1, x2)
+        if mesh is not None:
+            lv1, lv2 = mesh.gather(lv1), mesh.gather(lv2)
         return losses.contrastive_cos_loss(
             lv1, lv2, weight=1.0 - cfg.weight_tno, gamma=cfg.gamma), lv1, lv2
 
@@ -158,7 +191,7 @@ def make_eval_fns(cfg: ModelConfig):
         (pretrain, reference train_dcca_pool.py:170-182)."""
         _, _, new_state, _ = cca_model.forward_train(
             state.params, prepare_view1_device(x1, cfg),
-            prepare_view2_device(x2), cfg)
+            prepare_view2_device(x2), cfg, mesh)
         state.params.write_state(new_state)
         return state
 
@@ -298,6 +331,7 @@ def fit(
     on_epoch: Optional[Callable[[dict], None]] = None,
     update_learning_rate: Optional[Callable[[float, int], float]] = None,
     resume_file: Optional[str] = None,
+    mesh=None,
 ):
     """Train with early stopping and refinement restarts on ``device`` (a
     copy of ``params`` is trained; the caller's module is not changed) ->
@@ -315,9 +349,26 @@ def fit(
     over the device pool) and ``eval_seconds``. With ``resume_file`` set,
     the whole fit state is written there at every epoch end, and an
     existing file resumes the run where it stopped.
+
+    With ``mesh`` (a ``parallel.mesh.DataMesh`` on ``device``), training
+    is data-parallel over its ranks (JAX ``train/engine.py:255-456``): the
+    params are broadcast from rank 0; the train pool is a
+    ``DevicePool(mesh=mesh)`` (replicated, each rank assembling its slice
+    of every batch) or a ``parallel.sharded_pool.ShardedDevicePool`` with
+    its ``ShardedBatchIterator``, or host pools (each rank builds the
+    global batch and uploads its slice); the valid pool is a device pool
+    on the mesh or on none. The evaluation runs on every rank (the train
+    codes of a sharded pool gathered first); rank 0's epoch numbers are
+    broadcast, so every rank takes the same decisions; only rank 0 writes
+    the dump, the curves and the snapshot, and every rank resumes from
+    the same snapshot.
     """
     device = torch.device(device)
-    os.makedirs(out_path, exist_ok=True)
+    if mesh is not None and mesh.device != device:
+        raise ValueError(f"fit on {device} with a mesh on {mesh.device}")
+    is_writer = mesh is None or mesh.rank == 0
+    if is_writer:
+        os.makedirs(out_path, exist_ok=True)
     if log_file is None:
         log_file = os.path.join(out_path, "results.pkl")
     num_epochs = num_epochs or cfg.max_epochs
@@ -328,11 +379,19 @@ def fit(
         raise ValueError("the train and the valid data must both be device "
                          "pools or both host pools")
     data_path = "device pool" if device_data else "host iterator"
+    sharded = isinstance(data["train"], sharded_pool.ShardedDevicePool)
+    if device_data and getattr(data["train"], "mesh", None) is not mesh:
+        raise ValueError("the train pool must be built on fit's mesh")
     state = ts.init_train_state(copy.deepcopy(params).to(device), cfg)
-    train_step = make_train_step(cfg)
-    embed_pair, valid_loss_fn, init_cca_step = make_eval_fns(cfg)
+    if mesh is not None:
+        mesh.broadcast_(state.params.state_dict().values())
+    train_step = make_train_step(cfg, mesh)
+    embed_pair, valid_loss_fn, init_cca_step = make_eval_fns(cfg, mesh)
 
     def put(x):
+        """A host batch on the device (with a mesh, this rank's slice)."""
+        if mesh is not None:
+            x = mesh.shard(x)
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     def say(msg, color=None):
@@ -346,7 +405,12 @@ def fit(
         "host iterator, batches built in a producer thread"))
 
     snap = None
-    if resume_file is not None and os.path.exists(resume_file):
+    do_resume = resume_file is not None and os.path.exists(resume_file)
+    if mesh is not None:
+        # one decision for all ranks, rank 0's: a rank that decided alone
+        # could skip the pretrain the others run and wait in a collective
+        do_resume = bool(mesh.broadcast_values([do_resume])[0])
+    if do_resume:
         with open(resume_file, "rb") as fp:
             snap = pickle.load(fp)
         if snap.get("fit_state_version") != FIT_STATE_VERSION:
@@ -382,8 +446,14 @@ def fit(
     n_valid_cca = int(min(1000, data["valid"].shape[0]))
     epoch_idx = 0
     if device_data:
-        epoch_runner = device_pool.make_epoch_runner(cfg, data["train"])
-        embed_tr = device_pool.make_embed_runner(cfg, data["train"])
+        if sharded:
+            epoch_runner = sharded_pool.make_sharded_epoch_runner(
+                cfg, data["train"])
+            embed_tr = sharded_pool.make_sharded_embed_runner(
+                cfg, data["train"])
+        else:
+            epoch_runner = device_pool.make_epoch_runner(cfg, data["train"])
+            embed_tr = device_pool.make_embed_runner(cfg, data["train"])
         embed_va = device_pool.make_embed_runner(cfg, data["valid"])
         fused_eval = make_fused_eval(cfg)
     data_objs = (("train_pool", data.get("train")),
@@ -429,14 +499,18 @@ def fit(
         """The evaluation over the device pools (the JAX package's fused
         arm, its :477-506): the train subset is the first nb * bs entities
         of the pool's current order, read without an iterator, so nothing
-        reshuffles; the valid codes are the valid iterator's next
-        sub-epoch, cut to max(n_valid_cca, bs) rows."""
+        reshuffles (of a sharded pool: nb fresh batches of its epoch
+        indices, gathered over the ranks); the valid codes are the valid
+        iterator's next sub-epoch, cut to max(n_valid_cca, bs) rows."""
         bs = train_batch_iter.batch_size
         nb = int(np.ceil(n_valid_cca / bs))
         pool_tr = data["train"]
-        idx = np.arange(nb * bs) % pool_tr.shape[0]
-        lv1_tr, lv2_tr, _ = embed_tr(model, pool_tr._order[idx.reshape(nb,
-                                                                       bs)])
+        if sharded:
+            entity_idx = pool_tr.epoch_indices(nb, bs)
+        else:
+            idx = np.arange(nb * bs) % pool_tr.shape[0]
+            entity_idx = pool_tr._order[idx.reshape(nb, bs)]
+        lv1_tr, lv2_tr, _ = embed_tr(model, entity_idx)
         va_it = valid_batch_iter(data["valid"])
         lv1_va, lv2_va, va_losses = embed_va(model,
                                              va_it.epoch_entity_indices())
@@ -462,6 +536,8 @@ def fit(
             if n_collected >= n_valid_cca:
                 continue
             lv1, lv2 = embed_pair(model, put(x1), put(x2))
+            if mesh is not None:    # this rank's slice -> the batch's codes
+                lv1, lv2 = mesh.gather(lv1), mesh.gather(lv2)
             V1_tr.append(lv1)
             V2_tr.append(lv2)
             n_collected += lv1.shape[0]
@@ -540,6 +616,14 @@ def fit(
                  else evaluate_on_host)(model)
             mean_rank_tr = 1.0 - float(hit_tr[10]) / n_tr
             mean_rank_va = 1.0 - float(hit_va[10]) / 1000.0
+            if mesh is not None:
+                # every rank computed these; rank 0's decide for all
+                (tr_loss, va_loss, map_tr, map_va, med_rank_tr, med_rank_va,
+                 dist_tr, dist_va, mean_rank_tr, mean_rank_va) = \
+                    mesh.broadcast_values([
+                        tr_loss, va_loss, map_tr, map_va, med_rank_tr,
+                        med_rank_va, dist_tr, dist_va, mean_rank_tr,
+                        mean_rank_va])
             eval_s = time.perf_counter() - t_eval
 
             # ---- improvement / snapshot (:387-401) --------------------
@@ -549,7 +633,7 @@ def fit(
                 best_epoch = epoch_idx
                 best_model = _clone_params(state.params)
                 best_opt_state = copy.deepcopy(state.optimizer.state_dict())
-                if dump_file is not None:
+                if dump_file is not None and is_writer:
                     uio.save_pytree(
                         dump_file,
                         lasagne_import.train_params_to_numpy(state.params),
@@ -581,7 +665,8 @@ def fit(
                          ("map_val", map_va), ("evals_tr", corr_mean),
                          ("lr", learn_rate)):
                 curves[k].append(v)
-            uio.save_results(log_file, curves)
+            if is_writer:
+                uio.save_results(log_file, curves)
 
             if on_epoch is not None:
                 on_epoch(dict(number=epoch_idx, train_loss=tr_loss,
@@ -618,7 +703,7 @@ def fit(
 
             # written AFTER the early-stop / refinement branch: the file
             # holds exactly the state the next epoch starts from
-            if resume_file is not None:
+            if resume_file is not None and is_writer:
                 write_snapshot()
 
     except KeyboardInterrupt:
