@@ -109,18 +109,8 @@ class DataMesh:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[D, *x.shape]: every rank's ``x`` in rank order (no autograd)."""
-        x = x.contiguous()
-        if self.backend == "gloo" and x.is_cuda:
-            # gloo gathers no CUDA tensors (its all_gather is for host
-            # tensors); each rank writes its part into a zero buffer and
-            # the sum over the ranks is the gather. x + 0 is exact (only a
-            # -0.0 comes out as +0.0).
-            out = x.new_zeros((self.world_size,) + tuple(x.shape))
-            out[self.rank] = x
-            dist.all_reduce(out, group=self.group)
-            return out
         parts = [torch.empty_like(x) for _ in range(self.world_size)]
-        dist.all_gather(parts, x, group=self.group)
+        dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.stack(parts)
 
     def all_gather_host(self, arr: np.ndarray) -> np.ndarray:

@@ -165,14 +165,34 @@ exits non-zero):
    memory and the system net's device time by kind (torch.profiler)
    beside the bound.
 
+16. reports and data parallelism. a. ``reports``' six subcommands over
+   the dumps phases 6, 10, 11, 14 and 15d left in a reports directory,
+   each row holding its dump's numbers; the model FLOPs of
+   ``utils/roofline.py`` and the achieved TFLOP/s and MFU of phase 4's
+   float32 build, phase 13a's bf16 build and phase 11's step against the
+   card's peaks (``card_peaks``: the same table gives every bound here);
+   one audio -> sheet query inside ``utils.profiling.trace``, its trace
+   holding kernels. b. this script started twice more
+   (``--mesh-rank``) as two gloo ranks sharing card 0, at full width:
+   one step on each half of phase 11's batch against one rank's step on
+   the whole and a float64 step; a 3-epoch ``fit`` over a
+   ``ShardedDevicePool`` of phase 11's corpus held to phase 11's learning
+   criteria, the ranks equal epoch for epoch; a fit stopped after epoch 2
+   and resumed on both ranks, bit for bit as the uninterrupted one
+   (deterministic cuDNN); the step ms and peak memory a rank (two
+   processes on one card, not a scaling figure). c. once more as a
+   one-rank NCCL group: one fit epoch over replicated device pools, bit
+   for bit as without a group.
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
-phases 11-15 (``fit``, ``run_eval``, the CLI, the resume runs, each build
+phases 11-16 (``fit``, ``run_eval``, the CLI, the resume runs, each build
 and query set of phase 13, each ``audio2sheet_align`` run of phase 14,
-each command line of phase 15); each of phases 4-13 and 15 must launch the
-top-k kernel and phase 14 both DTW kernels once for each piece it aligns
-by ``pydtw``, and the ``kernels`` line reports the sum over phases 4-15
-(kernel 2's bf16 launches of phase
+each command line of phase 15, the traced query and each rank process of
+phase 16, whose counts its ranks report); each of phases 4-13, 15 and 16
+must launch the top-k kernel and phase 14 both DTW kernels once for each
+piece it aligns by ``pydtw``, and the ``kernels`` line reports the sum
+over phases 4-16 (kernel 2's bf16 launches of phase
 13 among them), beside each kernel's times at the main path's shape
 (top-k: Q = 100, N = 12,000, k = 25; gather: one 6040-px strip, float32,
 its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
@@ -186,6 +206,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -195,11 +216,6 @@ import warnings
 import numpy as np
 
 TOPK_ATOL = 1e-4   # kernel vs cuBLAS + sort: f32 sums in another order
-# the card's peak rates for bound_ms (NVIDIA's H100 SXM data sheet): device
-# memory, and float32 FMAs outside the tensor cores (the port pins f32 with
-# TF32 off, so kernel 1 scores on CUDA cores)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
 
 
 def _plain(o):
@@ -275,12 +291,32 @@ def queued_ms(fn, n: int = 20) -> float:
     return a.elapsed_time(b) / n
 
 
+def card_peaks() -> dict:
+    """The data-sheet peaks of card 0, looked up by its name in the port's
+    ``utils/roofline.py`` (an H100 SXM: float32 FMAs outside the tensor
+    cores 67 TFLOP/s, where the port's float32 runs with TF32 off; bf16
+    989 TFLOP/s; device memory 3.35 TB/s). A card the table lacks fails
+    the run."""
+    import torch
+
+    from audio_sheet_retrieval_tpu_torch.utils import roofline
+
+    name = torch.cuda.get_device_name(0)
+    peaks = roofline.chip_peaks(name)
+    if peaks is None or "f32_flops" not in peaks:
+        raise SystemExit(f"chip_smoke: utils/roofline.py has no peaks for "
+                         f"{name!r}")
+    return peaks
+
+
 def bound(nbytes: float, flops: float):
     """-> (least milliseconds the card could take, "bytes" or
     "operations"): each input read once, each output written once, at the
-    memory rate, against the operations at the float32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    memory rate, against the operations at the float32 rate (both the
+    card's, ``card_peaks``)."""
+    peaks = card_peaks()
+    t_bytes = nbytes / peaks["hbm_bytes_per_s"] * 1e3
+    t_ops = flops / peaks["f32_flops"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -700,7 +736,17 @@ def read_launches() -> dict:
             "dtw_traceback": dtw.dtw_traceback.launches}
 
 
-def phase_serving(torch):
+def report_params(ctx) -> str:
+    """The serving checkpoint copied under the results' naming convention
+    (``params_<split>_<aug>.pkl``) into phase 16's reports directory, so
+    the CLIs' result dumps land there under names ``reports`` reads."""
+    path = os.path.join(ctx["reports_dir"], "params_%s.pkl" % REPORT_TAG)
+    if not os.path.exists(path):
+        shutil.copy(ctx["ckpt"], path)
+    return path
+
+
+def phase_serving(torch, reports_dir):
     from audio_sheet_retrieval_tpu_torch import assets
     from audio_sheet_retrieval_tpu_torch.data import synthetic
     from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
@@ -747,20 +793,24 @@ def phase_serving(torch):
              sheet_emb_per_s=gal.n / build_s, rank1=acc["rank1"],
              rank5=acc["rank5"], n=acc["n"], margin_p10=acc["margin_p10"],
              margin_p50=acc["margin_p50"], query_p50_ms=acc["p50_ms"])
+    # the CLIs' rank dumps go to phase 16's reports directory
+    report_ckpt = report_params(dict(reports_dir=reports_dir, ckpt=ckpt))
     with tempfile.TemporaryDirectory() as tmp:
         cli_ranks = {}
         for fused in (False, True):
             argv = ["--data", "synthetic", "--n_test_pieces", "8",
-                    "--param_file", ckpt, "--db_file",
+                    "--param_file", report_ckpt, "--db_file",
                     os.path.join(tmp, "sheet_db.pkl"), "--init_sheet_db",
-                    "--full_eval"] + (["--fused"] if fused else [])
+                    "--full_eval", "--dump_results"] + (
+                        ["--fused"] if fused else [])
             cli_ranks[fused] = [int(r) for r in cli.main(argv)]
         s2a_ranks = {}
         for fused in (False, True):
             argv = ["--data", "synthetic", "--n_test_pieces", "8",
-                    "--param_file", ckpt, "--db_file",
+                    "--param_file", report_ckpt, "--db_file",
                     os.path.join(tmp, "audio_db.pkl"), "--init_audio_db",
-                    "--full_eval"] + (["--fused"] if fused else [])
+                    "--full_eval", "--dump_results"] + (
+                        ["--fused"] if fused else [])
             s2a_ranks[fused] = [int(r) for r in s2a_cli.main(argv)]
     launches = read_launches()
 
@@ -812,7 +862,8 @@ def phase_serving(torch):
          s2a_ranks_equal_fused=True, launches=launches)
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
-    ctx = dict(dev=dev, cfg=cfg, params=params, ckpt=ckpt, images=images,
+    ctx = dict(dev=dev, cfg=cfg, params=params, ckpt=ckpt,
+               reports_dir=reports_dir, images=images,
                specs=specs, coords=coords, o2cs=o2cs, gallery=exact_gal,
                galleries={arm: g for arm, (g, _) in run.items()},
                serving={arm: dict(emb_per_s=g.n / build_s_of[arm],
@@ -1141,8 +1192,9 @@ def phase_eval_refine(torch, ctx):
     common = ["--data", "synthetic", "--n_test", str(EVAL_N_TEST)]
     for direction, flag in (("S2A", []), ("A2S", ["--V2_to_V1"])):
         t0 = time.perf_counter()
-        rows[direction] = run_eval.main(common + flag + ["--param_file",
-                                                         ckpt])
+        # the dump goes to phase 16's reports directory
+        rows[direction] = run_eval.main(common + flag + [
+            "--param_file", report_params(ctx), "--dump_results"])
         rows[direction + "_seconds"] = time.perf_counter() - t0
     launches = read_launches()   # of the entry points alone, not the checks
     assert launches["topk_gallery"] >= 2, "run_eval ran no top-k kernel"
@@ -1379,14 +1431,16 @@ def valid_npz(tmp, pieces):
 
 
 def learning_fit(torch, ctx, data, iters, count,
-                 run_eval_atol=FIT_MRR_ATOL):
+                 run_eval_atol=FIT_MRR_ATOL, keep_curves=None):
     """A full-width ``fit`` of ``TRAIN_EPOCHS`` epochs over ``data`` with
     the iterators ``iters``, held to the learning criteria: train loss
     falls, validation MRR rises above epoch 1's and above twice chance, no
     NaN, kernel 1 launched at least twice an epoch; the last evaluation's
     ranks through kernel 1 equal the full argsort's, and the dump read back
     by ``run_eval`` gives the MRR ``fit`` reported (within
-    ``run_eval_atol``) -> the fit's record."""
+    ``run_eval_atol``); the results curves are copied to ``keep_curves``
+    when given -> the fit's record."""
+
     from audio_sheet_retrieval_tpu_torch.cli import run_eval
     from audio_sheet_retrieval_tpu_torch.data import synthetic
     from audio_sheet_retrieval_tpu_torch.models import cca_model
@@ -1413,6 +1467,8 @@ def learning_fit(torch, ctx, data, iters, count,
 
         best, best_map = count(run)
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        if keep_curves is not None:
+            shutil.copy(os.path.join(tmp, "results.pkl"), keep_curves)
         assert len(recs) == TRAIN_EPOCHS, recs
         assert all(np.isfinite(r["train_loss"]) for r in recs), recs
         assert recs[-1]["train_loss"] < recs[0]["train_loss"], recs
@@ -1572,7 +1628,7 @@ def phase_train(torch, ctx):
     small = synthetic.load_synthetic_retrieval(
         n_train=1, n_valid=1, n_test=1, n_onsets=120, augment=augment)
     x1, x2 = small["train"][0:cfg.batch_size]
-    ctx["step_batch"] = (x1, x2)
+    ctx["step_batch"], ctx["step_tree"] = (x1, x2), tree
     step_err = {w: step_card_vs_cpu(
         torch, dataclasses.replace(cfg, whitening=w), tree, x1, x2, dev)
         for w in ("polar", "eigh")}
@@ -1591,7 +1647,8 @@ def phase_train(torch, ctx):
     ctx["train_data"], ctx["valid_pool"] = data, data["valid"]
     host = learning_fit(torch, ctx, data, (
         PoolIterator(cfg.batch_size, k_samples=cfg.k_samples),
-        PoolIterator(cfg.batch_size, shuffle=False)), count)
+        PoolIterator(cfg.batch_size, shuffle=False)), count,
+        keep_curves=os.path.join(ctx["reports_dir"], "results.pkl"))
     assert {r["data"] for r in host["epochs"]} == {"host iterator"}
     ctx["host_fit"] = host
     emit("train", check="fit", pools_seconds=pools_s, **host)
@@ -2020,6 +2077,7 @@ def phase_precision(torch, ctx):
             f32_sheet_emb_per_s=f32.get("emb_per_s"),
             f32_query_p50_ms=f32.get("query_p50_ms"))
         emit("precision", check="a. bf16 build", arm=arm, **bf16[arm])
+    ctx["bf16_builds"] = bf16
     for arm, row in bf16.items():    # >= 59 of 60 each
         assert row["n"] == n_pieces and row["rank1"] >= n_pieces - 1, \
             (arm, row)
@@ -2377,7 +2435,9 @@ def align_cli(torch, ctx, count) -> dict:
                 dumped = config.derive_result_path(
                     ckpt, "alignment_res_", align_by + ".pkl")
                 assert os.path.exists(dumped), dumped
-                os.unlink(dumped)
+                # kept for phase 16's reports
+                shutil.move(dumped, os.path.join(
+                    ctx["reports_dir"], os.path.basename(dumped)))
         finally:
             a2s.compute_alignment = orig
     # the DTW path from the card's own distances, card against CPU, and
@@ -2500,7 +2560,6 @@ OMR_BF16_NOTES = 0.02
 OMR_F32_BAND = 1.5
 TUTORIAL_DIST_ATOL = 1e-3
 UMC_SR = 22050
-BF16_FLOP_PER_S = 989e12   # dense bf16 on the tensor cores (data sheet)
 OMR_DEVICE = "cuda"        # phase 15's device (a CPU rehearsal sets "cpu")
 
 
@@ -2734,7 +2793,6 @@ def phase_omr(torch, ctx):
     JAX's bf16 gate), the tutorial, the UMC command lines and
     ``prepare_umc_data``, then page times beside their bounds."""
     import ctypes
-    import shutil
 
     import yaml
 
@@ -2856,7 +2914,7 @@ def phase_omr(torch, ctx):
         # d. the UMC command lines over the two-piece directory
         data = build_umc_dir(os.path.join(tmp, "umc"), page)
         ckpt = assets.tutorial_checkpoint_path()
-        dset = os.path.basename(data)
+        dset = ctx["umc_dset"] = os.path.basename(data)
         runs = {}
         cwd = os.getcwd()
         os.chdir(tmp)    # the vendored checkpoint's yaml dumps go to cwd
@@ -2880,7 +2938,9 @@ def phase_omr(torch, ctx):
                     % (dset, suffix))
                 with open(dumped) as fp:
                     read_back = yaml.safe_load(fp)
-                os.remove(dumped)
+                # kept for phase 16's reports
+                shutil.move(dumped, os.path.join(ctx["reports_dir"],
+                                                 os.path.basename(dumped)))
                 runs[key] = {"ranks": [int(r) for r in ranks],
                              "seconds_a_piece": secs / 2,
                              "yaml_read_back": read_back}
@@ -2939,11 +2999,493 @@ def phase_omr(torch, ctx):
     emit("omr", check="e. page times", times=times,
          bound={"flops_a_page": flops, "bound_ms": bound_ms,
                 "bound_by": bound_by,
-                "bf16_ops_ms": flops / BF16_FLOP_PER_S * 1e3,
+                "bf16_ops_ms": flops / card_peaks()["bf16_flops"] * 1e3,
                 "activation_bytes_a_page": act_bytes * n_tiles,
-                "activation_ms_at_3.35TB/s":
-                act_bytes * n_tiles / HBM_BYTES_PER_S * 1e3},
+                "activation_ms_at_3.35TB/s": act_bytes * n_tiles
+                / card_peaks()["hbm_bytes_per_s"] * 1e3},
          launches=launches, phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# --- phase 16: reports, roofline, profiling; data-parallel training -------
+
+REPORT_TAG = "all_split_mutopia_no_aug"   # <split>_<aug> of the dumps' names
+# the two-rank step's gradients against a float64 step on the
+# concatenated batch: every element within this share of the largest. The
+# one-rank float32 step is itself 2.3e-3 from float64 on this batch (an
+# H100 at 700 W; phase 11 reads the same), so against it the two ranks are
+# held to phase 11's float32 gate, STEP_GRAD_TOL
+MESH_GRAD_TOL = 2e-3
+MESH_TIMEOUT = 600     # seconds a group of rank processes may take
+
+
+def reports_rows(argv) -> list:
+    """``reports.main(argv)``'s rows, its printing kept out of the log."""
+    import contextlib
+    import io
+
+    from audio_sheet_retrieval_tpu_torch.cli import reports
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return reports.main(argv)
+
+
+def rank_cells(ranks) -> list:
+    """The piece tables' cells of a rank list: rank <= 1, 5, 10, > 10."""
+    r = np.sort(np.asarray(ranks))
+    cnt = [float(np.sum(r <= t)) for t in (1, 5, 10)] + [float(np.sum(r > 10))]
+    return ["%d (%.2f)" % (c, c / len(r)) for c in cnt]
+
+
+def check_reports(ctx) -> dict:
+    """16a. Each ``reports`` subcommand over the dumps of phases 6, 10, 11,
+    14 and 15d: its rows hold the dumps' own numbers -> the rows."""
+    import glob
+    import pickle
+
+    import yaml
+
+    out = ctx["reports_dir"]
+
+    def dump(name):
+        with open(os.path.join(out, name)) as fp:
+            return yaml.safe_load(fp)
+
+    rows = {}
+    # snippet retrieval (phase 10's run_eval, both directions)
+    got = [r for r in reports_rows(["retrieval", "--out_path", out])
+           if r.startswith("none ")]
+    for direction, row in zip(("A2S", "S2A"), got):
+        res = dump(f"eval_{REPORT_TAG}_{direction}.yaml")
+        want = ["%.2f" % (res["recall_at_k"]["1"] / 100),
+                "%.2f" % (res["recall_at_k"]["25"] / 100),
+                "%.2f" % res["map"], "%d" % res["med_rank"]]
+        assert row.removesuffix(" \\\\").split(" & ")[-4:] == want, (row,
+                                                                     want)
+    rows["retrieval"] = got
+    # piece identification (phase 6's server CLIs)
+    got = [r for r in reports_rows(["piece-retrieval", "--out_path", out])
+           if r.startswith("all_split & ")]
+    want = [c for d in ("A2S", "S2A")
+            for c in rank_cells(dump(f"retrieval_{REPORT_TAG}_{d}.yaml"))]
+    assert got[0].removesuffix(" \\\\").split(" & ")[-8:] == want, (got, want)
+    rows["piece-retrieval"] = got[:1]
+    # the share of training data (phase 10's A2S file is the 100 % row)
+    res = dump(f"eval_{REPORT_TAG}_A2S.yaml")
+    got = reports_rows(["dset-size", "--out_path", out])
+    assert got == ["100%% train data: MRR %.3f med-rank %d"
+                   % (res["map"], res["med_rank"])], got
+    rows["dset-size"] = got
+    # UMC piece identification (phase 15d)
+    dset = ctx["umc_dset"]
+    got = reports_rows(["umc-piece-retrieval", "--out_path", out,
+                        "--dset", dset])
+    want = []
+    for d in ("A2S", "S2A"):
+        (f,) = glob.glob(os.path.join(out, f"umc_retrieval_*_{dset}_{d}"
+                                      ".yaml"))
+        want.append("%s %s & %s \\\\" % (
+            dset, d, " & ".join(rank_cells(dump(os.path.basename(f))))))
+    assert got == want, (got, want)
+    rows["umc-piece-retrieval"] = got
+    # alignment errors (phase 14, both aligners)
+    files = sorted(glob.glob(os.path.join(out, "alignment_res_*.pkl")))
+    assert len(files) == 2, files
+    got = reports_rows(["alignment"] + files)
+    for f, row in zip(files, got):
+        with open(f, "rb") as fp:
+            e = np.concatenate([np.abs(np.asarray(v))
+                                for v in pickle.load(fp).values()])
+        assert row == "%s: mean %.1f median %.1f p90 %.1f (<=25px: %.1f%%)" \
+            % (os.path.basename(f), e.mean(), np.median(e),
+               np.percentile(e, 90), 100.0 * np.mean(e <= 25)), row
+    rows["alignment"] = got
+    # phase 11's curves
+    log = os.path.join(out, "results.pkl")
+    with open(log, "rb") as fp:
+        curves = pickle.load(fp)
+    got = reports_rows(["curves", log])
+    assert got["map_val"] == curves["map_val"] and \
+        got["pred_tr_err"] == curves["pred_tr_err"], got
+    rows["curves"] = {"epochs": len(curves["map_val"]),
+                      "best_map_va": max(curves["map_val"])}
+    return rows
+
+
+def roofline_numbers(ctx) -> dict:
+    """16a. Model FLOPs (``utils.roofline``) and the achieved rate and MFU
+    of phase 4's float32 build, phase 13a's bf16 build and phase 11's
+    step against the card's data-sheet peaks."""
+    import torch
+
+    from audio_sheet_retrieval_tpu_torch.utils import roofline
+
+    name = torch.cuda.get_device_name(0)
+    flops = roofline.summarize(ctx["cfg"], name)
+    assert flops["chip"] is not None, name
+    sheet, update = flops["flops_per_sheet_embed"], flops["flops_per_update"]
+    runs = {"phase 4 float32 build": (
+                sheet * ctx["serving"]["exact"]["emb_per_s"], "float32"),
+            "phase 13a bf16 build": (
+                sheet * ctx["bf16_builds"]["exact"]["sheet_emb_per_s"],
+                "bfloat16"),
+            "phase 11 float32 step": (
+                update / (ctx["f32_step"]["step_ms"] / 1e3), "float32")}
+    return dict(model_flops=flops, peaks=card_peaks(), rates={
+        k: dict(tflop_per_s=r / 1e12, compute_dtype=dt,
+                peak_tflop_per_s=roofline.effective_peak_flops(
+                    name, dt, "highest") / 1e12,
+                mfu=roofline.mfu(r, name, dt, "highest"))
+        for k, (r, dt) in runs.items()})
+
+
+def traced_query(ctx) -> dict:
+    """16a. One audio -> sheet query inside ``utils.profiling.trace``."""
+    import torch
+
+    from audio_sheet_retrieval_tpu_torch.utils import profiling
+
+    srv = with_sheet_gallery(make_server(ctx), ctx)
+    kw = dict(top_k=5, n_candidates=25)
+    srv.detect_score(ctx["specs"][0], **kw)    # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as path:
+            top = srv.detect_score(ctx["specs"][0], **kw)
+        size = os.path.getsize(path)
+        with open(path) as fp:
+            events = json.load(fp)["traceEvents"]
+    kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
+    assert size > 0 and kernels > 0, (size, kernels)
+    mem = profiling.device_memory_stats()["cuda:0"]
+    assert mem["allocated_bytes.all.peak"] > 0
+    return dict(trace_bytes=size, device_kernels_traced=kernels,
+                top1=str(top[0][0]), peak_allocated_mb=mem[
+                    "allocated_bytes.all.peak"] / 2**20)
+
+
+def mesh_step(torch, cfg, tree, x1, x2, mesh) -> dict:
+    """``one_step`` on this rank's slice of the batch: the loss of the
+    global batch, the gradients summed over the ranks, the new running
+    state."""
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+    from audio_sheet_retrieval_tpu_torch.train import engine
+
+    p = lasagne_import.train_params_from_numpy(tree, cfg, device=mesh.device)
+    loss, new, corr = engine.train_loss(
+        p, torch.from_numpy(mesh.shard(x1)).to(mesh.device),
+        torch.from_numpy(mesh.shard(x2)).to(mesh.device), cfg, mesh)
+    loss.backward()
+    mesh.all_reduce_grads(p.parameters())
+    return dict(loss=loss.item(), corr=corr.detach().cpu().numpy(),
+                grads=[q.grad.cpu().numpy() for q in p.parameters()],
+                bn=[t.cpu().numpy() for st in new.bn1 + new.bn2 for t in st],
+                cca=[t.cpu().numpy() for t in new.cca])
+
+
+def mesh_pieces(n_train, n_valid, n_onsets, seed):
+    from audio_sheet_retrieval_tpu_torch.data import synthetic
+
+    return (synthetic.make_piece_list(seed, n_train, n_onsets=n_onsets),
+            synthetic.make_piece_list(seed + 1, n_valid, n_onsets=n_onsets))
+
+
+def mesh_data(mesh, dev, pieces, augment, seed, k_samples, batch,
+              sharded=True):
+    """Train and valid pools and iterators on ``mesh`` (or none) on
+    ``dev``: the train pool a ShardedDevicePool (or a replicated
+    DevicePool), the valid pool a replicated DevicePool, as ``fit``'s
+    docstring advises."""
+    from audio_sheet_retrieval_tpu_torch.data import device_pool as dp
+    from audio_sheet_retrieval_tpu_torch.data.pools import NO_AUGMENT
+    from audio_sheet_retrieval_tpu_torch.parallel import sharded_pool as sp
+
+    tr, va = pieces
+    if sharded:
+        train = sp.ShardedDevicePool(*tr, mesh=mesh, data_augmentation=augment,
+                                     rng=np.random.default_rng(seed))
+        tr_it = sp.ShardedBatchIterator(batch, k_samples=k_samples)
+    else:
+        train = dp.DevicePool(*tr, data_augmentation=augment,
+                              rng=np.random.default_rng(seed), mesh=mesh,
+                              device=dev)
+        tr_it = dp.DeviceBatchIterator(batch, k_samples=k_samples)
+    valid = dp.DevicePool(*va, data_augmentation=NO_AUGMENT, shuffle=False,
+                          rng=np.random.default_rng(seed + 1), mesh=mesh,
+                          device=dev)
+    return ({"train": train, "valid": valid}, tr_it,
+            dp.DeviceBatchIterator(batch, shuffle=False, train=False))
+
+
+def mesh_fit(torch, cfg, mesh, dev, data_and_iters, epochs, out,
+             resume=None):
+    """``fit`` from the seed-5 init -> its epoch records as float hex
+    (train and valid loss, valid and train MRR), and the record."""
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.train import engine
+
+    data, tr_it, va_it = data_and_iters()
+    recs = []
+    engine.fit(cca_model.init_model(torch.Generator().manual_seed(5), cfg,
+                                    device="cpu"),
+               data, cfg, tr_it, va_it, device=dev, out_path=out, num_epochs=epochs, verbose=False,
+               on_epoch=recs.append, resume_file=resume, mesh=mesh)
+    return [[float(r[k]).hex() for k in ("train_loss", "valid_loss",
+                                         "map_va", "map_tr")]
+            for r in recs], recs
+
+
+def deterministic(torch):
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def rank_gloo(torch, mesh, work) -> dict:
+    """16b, on one of two ranks sharing card 0 over gloo: the step on this
+    rank's half of phase 11's batch; a 3-epoch fit over a ShardedDevicePool
+    of phase 11's corpus; a fit stopped after epoch 2 and resumed against
+    the uninterrupted one (deterministic cuDNN)."""
+    import pickle
+
+    from audio_sheet_retrieval_tpu_torch import config
+    from audio_sheet_retrieval_tpu_torch.train import engine
+    from audio_sheet_retrieval_tpu_torch.train import state as ts
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+
+    with open(os.path.join(work, "step.pkl"), "rb") as fp:
+        cfg, tree, x1, x2 = pickle.load(fp)
+    res = {}
+    with open(os.path.join(work, f"step_{mesh.rank}.pkl"), "wb") as fp:
+        pickle.dump(mesh_step(torch, cfg, tree, x1, x2, mesh), fp)
+    state = ts.init_train_state(lasagne_import.train_params_from_numpy(
+        tree, cfg, device=mesh.device), cfg)
+    train_step = engine.make_train_step(cfg, mesh)
+    t1 = torch.from_numpy(mesh.shard(x1)).to(mesh.device)
+    t2 = torch.from_numpy(mesh.shard(x2)).to(mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+    res["step_ms"] = cuda_ms(lambda: train_step(state, t1, t2), iters=20,
+                             warmup=5)
+    res["step_max_memory_allocated_mb"] = \
+        torch.cuda.max_memory_allocated() / 2**20
+
+    augment = config.load_experiment_config("mutopia_full_aug").augment
+    pieces = mesh_pieces(TRAIN_PIECES["n_train"], TRAIN_PIECES["n_valid"],
+                         TRAIN_PIECES["n_onsets"], 23)
+    fit_cfg = dataclasses.replace(cfg, max_epochs=TRAIN_EPOCHS)
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dev = mesh.device
+    hexes, recs = mesh_fit(torch, fit_cfg, mesh, dev, lambda: mesh_data(
+        mesh, dev, pieces, augment, 23, cfg.k_samples, cfg.batch_size),
+        TRAIN_EPOCHS, os.path.join(work, "fit"))
+    res["fit"] = dict(seconds=time.perf_counter() - t0, epochs_hex=hexes,
+                      epochs=[dict(
+                          number=r["number"], train_loss=r["train_loss"],
+                          map_va=r["map_va"], map_tr=r["map_tr"],
+                          updates_per_s=r["updates_per_s"],
+                          eval_s=r["eval_seconds"]) for r in recs],
+                      max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+                      / 2**20, launches=read_launches())
+
+    deterministic(torch)
+    res_cfg = dataclasses.replace(cfg, k_samples=2 * cfg.batch_size,
+                                  patience=50)
+    small = mesh_pieces(RESUME_PIECES["n_train"], RESUME_PIECES["n_valid"],
+                        RESUME_PIECES["n_onsets"], 5)
+
+    def small_data():
+        return mesh_data(mesh, dev, small, augment, 5, res_cfg.k_samples,
+                         cfg.batch_size)
+
+    zero_launches()
+    snap = os.path.join(work, "fit_state.pkl")
+    full = mesh_fit(torch, res_cfg, mesh, dev, small_data, 4,
+                    os.path.join(work, "full"))[0]
+    first = mesh_fit(torch, res_cfg, mesh, dev, small_data, 2,
+                     os.path.join(work, "part"), snap)[0]
+    second = mesh_fit(torch, res_cfg, mesh, dev, small_data, 4,
+                      os.path.join(work, "part"), snap)[0]
+    res["resume"] = dict(full=full, first=first, second=second,
+                         launches=read_launches())
+    assert first == full[:2] and second == full[2:], res["resume"]
+    return res
+
+
+def rank_nccl(torch, mesh, work) -> dict:
+    """16c, a one-rank NCCL group: one epoch of the fit over replicated
+    device pools with the mesh and without, deterministic cuDNN."""
+    from audio_sheet_retrieval_tpu_torch import config
+    from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
+
+    deterministic(torch)
+    cfg = get_model_config("mutopia_ccal_cont_rsz")
+    augment = config.load_experiment_config("mutopia_full_aug").augment
+    pieces = mesh_pieces(TRAIN_PIECES["n_train"], TRAIN_PIECES["n_valid"],
+                         TRAIN_PIECES["n_onsets"], 23)
+    zero_launches()
+    runs = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        runs[name] = mesh_fit(torch, cfg, m, mesh.device, lambda: mesh_data(
+            m, mesh.device, pieces, augment, 23, cfg.k_samples,
+            cfg.batch_size, sharded=False), 1, os.path.join(work, name))[0]
+    assert runs["mesh"] == runs["none"], runs
+    return dict(epochs_hex=runs, launches=read_launches())
+
+
+def mesh_rank_main(argv) -> int:
+    """A rank process of phase 16 (``chip_smoke.py --mesh-rank RANK WORLD
+    PORT BACKEND WORKDIR``): joins the group on card 0, runs its part,
+    prints its result as the last line."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_sheet_retrieval_tpu_torch.models import encoder
+    from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm
+
+    rank, world, port, backend, work = argv
+    encoder.pin_full_f32()
+    mesh = pm.make_mesh(backend, device="cuda:0",
+                        init_method=f"tcp://127.0.0.1:{port}",
+                        rank=int(rank), world_size=int(world))
+    try:
+        run = rank_gloo if backend == "gloo" else rank_nccl
+        res = run(torch, mesh, work)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"rank": mesh.rank, "result": res}, default=_plain))
+    return 0
+
+
+def spawn_ranks(world: int, backend: str, work: str) -> list:
+    """Start ``world`` rank processes of this script on card 0 and wait
+    for them -> each rank's result."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(world), port, backend, work], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"phase 16 {backend} rank {r} exited "
+                             f"{p.returncode}:\n{out[-6000:]}")
+    return [json.loads(out.strip().splitlines()[-1])["result"]
+            for out in outs]
+
+
+def phase_reports(torch, ctx):
+    """16a. ``reports`` on the earlier phases' dumps, the roofline and a
+    traced query."""
+    rows = check_reports(ctx)
+    emit("reports", check="a. reports on the dumps", rows=rows)
+    emit("reports", check="a. roofline", **roofline_numbers(ctx))
+    zero_launches()
+    emit("reports", check="a. traced query", **traced_query(ctx))
+    launches = read_launches()
+    assert launches["topk_gallery"] > 0, "the traced query ran no top-k"
+    return launches
+
+
+def phase_mesh(torch, ctx):
+    """16b-c. Two ranks on card 0 over gloo at full width: the step against
+    one rank on the concatenated batch, a learning fit over a
+    ShardedDevicePool, kill and resume; a one-rank NCCL group's fit bit
+    for bit as no group's. The ranks' kernel launches are added up."""
+    import pickle
+
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in read_launches()}
+    cfg, dev = ctx["cfg"], ctx["dev"]
+    x1, x2 = ctx["step_batch"]
+    tree = ctx["step_tree"]
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, "step.pkl"), "wb") as fp:
+            pickle.dump((cfg, tree, x1, x2), fp)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, "gloo", work)
+        gloo_s = time.perf_counter() - t0
+        two = []
+        for r in range(2):
+            with open(os.path.join(work, f"step_{r}.pkl"), "rb") as fp:
+                two.append(pickle.load(fp))
+    step = two[0]
+    for key in ("grads", "bn", "cca"):     # both ranks took the same step
+        assert all(np.array_equal(a, b) for a, b in zip(step[key],
+                                                        two[1][key])), key
+    assert step["loss"] == two[1]["loss"]
+    one = one_step(torch, cfg, tree, x1, x2, dev, torch.float32)
+    f64 = one_step(torch, cfg, tree, x1, x2, dev, torch.float64)
+    err = step_errors(step, one)
+    exact = {"two_ranks": step_errors(step, f64),
+             "one_rank": step_errors(one, f64)}
+    emit("mesh", check="b. two-rank step vs one rank, concatenated batch",
+         ranks=2, backend="gloo", batch=cfg.batch_size,
+         per_rank=cfg.batch_size // 2, errors=err, against_float64=exact)
+    assert err["loss"] <= STEP_LOSS_RTOL, err
+    assert err["corr"] <= 1e-4, err
+    assert err["grad"] <= STEP_GRAD_TOL, err
+    assert exact["two_ranks"]["grad"] <= MESH_GRAD_TOL, exact
+    assert err["bn_rel"] <= STEP_STATE_RTOL, err
+    assert err["cov_rel"] <= STEP_STATE_RTOL, err
+    assert err["means"] <= 1e-5, err
+    assert err["uv"] <= STEP_UV_ATOL, err
+
+    fits = [r["fit"] for r in ranks]
+    assert fits[0]["epochs_hex"] == fits[1]["epochs_hex"], fits
+    recs = fits[0]["epochs"]
+    n_va = TRAIN_PIECES["n_valid"] * TRAIN_PIECES["n_onsets"]
+    chance = float(np.mean(1.0 / np.arange(1, n_va + 1)))
+    assert len(recs) == TRAIN_EPOCHS, recs
+    assert all(np.isfinite(r["train_loss"]) for r in recs), recs
+    assert recs[-1]["train_loss"] < recs[0]["train_loss"], recs
+    assert recs[-1]["map_va"] > recs[0]["map_va"], recs
+    assert recs[-1]["map_va"] > 2 * chance, recs
+    for r in ranks:
+        assert r["fit"]["launches"]["topk_gallery"] >= 2 * TRAIN_EPOCHS, r
+        for part in ("fit", "resume"):
+            for name, n in r[part]["launches"].items():
+                launches[name] += n
+    emit("mesh", check="b. fit over a ShardedDevicePool, two ranks",
+         epochs=recs, chance_mrr=chance, seconds=fits[0]["seconds"],
+         ranks_agree_bit_for_bit=True,
+         max_memory_allocated_mb=[f["max_memory_allocated_mb"]
+                                  for f in fits])
+    emit("mesh", check="b. kill and resume, two ranks",
+         epochs=ranks[0]["resume"]["full"], resumed_bit_identical=True,
+         cudnn_deterministic=True)
+    emit("mesh", check="b. step times: two processes sharing one card "
+         "(not a scaling figure)", one_rank_step_ms=ctx["f32_step"]["step_ms"],
+         one_rank_max_memory_allocated_mb=ctx["f32_step"][
+             "max_memory_allocated_mb"],
+         two_rank_step_ms=[r["step_ms"] for r in ranks],
+         two_rank_max_memory_allocated_mb=[
+             r["step_max_memory_allocated_mb"] for r in ranks],
+         gloo_processes_seconds=gloo_s)
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        (nccl,) = spawn_ranks(1, "nccl", work)
+        nccl_s = time.perf_counter() - t0
+    for name, n in nccl["launches"].items():
+        launches[name] += n
+    emit("mesh", check="c. one-rank nccl group vs no group, one epoch",
+         epochs_hex=nccl["epochs_hex"], bit_identical=True,
+         seconds=nccl_s, launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    assert launches["topk_gallery"] > 0, "phase 16 ran no top-k kernel"
     return launches
 
 
@@ -2952,12 +3494,14 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     kernel_stats = phase_kernels(torch)
-    ctx, launches = phase_serving(torch)
-    for phase in (phase_s2a, phase_streaming, phase_audio,
-                  phase_eval_refine, phase_train, phase_device_pool,
-                  phase_precision, phase_alignment, phase_omr):
-        for name, n in phase(torch, ctx).items():
-            launches[name] += n
+    with tempfile.TemporaryDirectory() as reports_dir:
+        ctx, launches = phase_serving(torch, reports_dir)
+        for phase in (phase_s2a, phase_streaming, phase_audio,
+                      phase_eval_refine, phase_train, phase_device_pool,
+                      phase_precision, phase_alignment, phase_omr,
+                      phase_reports, phase_mesh):
+            for name, n in phase(torch, ctx).items():
+                launches[name] += n
     rows = []
     replaces = {"topk_gallery":
                 "audio_sheet_retrieval_tpu/ops/topk_gallery.py:45",
@@ -2988,4 +3532,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:     # a rank process of phase 16
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())
