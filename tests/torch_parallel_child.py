@@ -18,7 +18,7 @@ what the parent compares into ``outdir``:
     python tests/torch_parallel_child.py <rank> <world> <port> <scenario> <outdir>
 
 Each epoch prints ``EPOCH <rank> <n>: <losses and MRRs as float hex>``; the
-last line is ``OK <rank>``. The module's builders (``small_cfg``,
+last line is ``OK <rank>``. The module's input functions (``small_cfg``,
 ``corpus``, ``start_params``, ``step_batch``) are imported by the parent,
 so both sides build the same inputs.
 """
