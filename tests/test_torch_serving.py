@@ -204,9 +204,9 @@ def test_cli_demo_and_unported_modes(synth, tmp_path, capsys):
     JAX CLI's does;
     ``--conv_precision high`` gives the JAX server's ranks under the same
     numerics, and the unported ``default`` raises."""
-    common = ["--device", "cpu", "--n_test_pieces", "2", "--param_file",
-              SYNTH_CKPT, "--db_file", str(tmp_path / "db.pkl"),
-              "--running_frames", "50"]
+    common = ["--device", "cpu", "--data", "synthetic", "--n_test_pieces",
+              "2", "--param_file", SYNTH_CKPT, "--db_file",
+              str(tmp_path / "db.pkl"), "--running_frames", "50"]
     assert tcli.main(common) is None
     assert "device streaming at" in capsys.readouterr().out
     assert tcli.main(common + ["--host_stream"]) is None
