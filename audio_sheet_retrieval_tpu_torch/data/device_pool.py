@@ -161,25 +161,20 @@ class DevicePool:
         shuffle: bool = True,
         device="cuda",
         mesh=None,
-        host_only: bool = False,
     ):
         """``mesh`` (a ``parallel.mesh.DataMesh``): the dataset is
         replicated on every rank, on the mesh's device; every rank draws
         the same global batch (the same ``rng`` seed on every rank gives
         the same order and device generator) and assembles only its slice
-        of it (the JAX package's ``mesh=`` arm, its :148-159).
-        ``host_only``: keep the strip and spectrogram planes as numpy
-        arrays on the host, for callers that need only the entity
-        arithmetic (``parallel.sharded_pool``)."""
+        of it (the JAX package's ``mesh=`` arm, its :148-159)."""
         self.spec_context = spec_context
         self.sheet_context = sheet_context
         self.staff_height = staff_height
         self.data_augmentation = dict(data_augmentation or NO_AUGMENT)
         self.rng = rng if rng is not None else np.random.default_rng()
         self.mesh = mesh
-        self.device = torch.device(
-            "cpu" if host_only else mesh.device if mesh is not None
-            else device)
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
 
         margin_x = 2 * sheet_context
         margin_t = spec_context
@@ -250,11 +245,8 @@ class DevicePool:
         if shuffle:
             self.reset_batch_generator()
 
-        if host_only:
-            self.strip, self.spec = big_strip, big_spec
-        else:
-            self.strip = torch.from_numpy(big_strip).to(self.device)
-            self.spec = torch.from_numpy(big_spec).to(self.device)
+        self.strip = torch.from_numpy(big_strip).to(self.device)
+        self.spec = torch.from_numpy(big_spec).to(self.device)
         self.strip_h = strip_h
         self.bins = bins
         # the JAX package seeds its PRNG key with this draw (:257); the
@@ -287,6 +279,15 @@ class DevicePool:
         return self._assemble(self.strip, self.spec, coords, onsets, draws,
                               train)
 
+    def epoch_batches(self, entity_idx: np.ndarray, train: bool = True):
+        """Yield the batch of each row of ``entity_idx`` ([n, B] entity
+        indices, uploaded once), drawn and assembled on the device (with a
+        mesh, this rank's slice of each)."""
+        coords = self.put(self.entity_coords[entity_idx])
+        onsets = self.put(self.entity_onsets[entity_idx])
+        for c, o in zip(coords, onsets):
+            yield self.assemble(c, o, train)
+
     def batch(self, idx: np.ndarray, train: bool = True):
         """Assemble a batch for entity positions ``idx`` (in the current
         shuffled order) -> device tensors ([B,1,sh,ctx] raw-range sheets,
@@ -308,22 +309,22 @@ class DevicePool:
 
 
 def make_epoch_runner(cfg, pool: DevicePool):
-    """-> ``runner(state, entity_idx [n, B])`` -> (losses [n], corrs [n, d])
-    on the card: a sub-epoch as a plain loop of draw, assemble and the
-    engine's train step. The index matrices are uploaded once; nothing is
-    downloaded and nothing synchronises inside the loop. Every launch has
-    a fixed shape and its draws come from the pool's device generator, so
-    the loop body can be captured in a CUDA graph."""
+    """-> ``runner(state, entity_idx)`` -> (losses [n], corrs [n, d]) on
+    the card: a sub-epoch as a plain loop of draw, assemble and the
+    engine's train step, over the ``n`` batches of ``pool.epoch_batches``
+    (a ``DevicePool``'s [n, B] entity indices, or a
+    ``parallel.sharded_pool.ShardedDevicePool``'s [n, D, B/D]). The index
+    matrices are uploaded once; nothing is downloaded and nothing
+    synchronises inside the loop. Every launch has a fixed shape and its
+    draws come from the pool's device generator, so the loop body can be
+    captured in a CUDA graph."""
     from audio_sheet_retrieval_tpu_torch.train.engine import make_train_step
 
     train_step = make_train_step(cfg, pool.mesh)
 
     def runner(state, entity_idx: np.ndarray):
-        coords = pool.put(pool.entity_coords[entity_idx])
-        onsets = pool.put(pool.entity_onsets[entity_idx])
         losses, corrs = [], []
-        for c, o in zip(coords, onsets):
-            x1, x2 = pool.assemble(c, o, train=True)
+        for x1, x2 in pool.epoch_batches(entity_idx, train=True):
             m = train_step(state, x1, x2)
             losses.append(m["loss"])
             corrs.append(m["corr"])
@@ -333,20 +334,20 @@ def make_epoch_runner(cfg, pool: DevicePool):
 
 
 def make_embed_runner(cfg, pool: DevicePool):
-    """-> ``runner(params, entity_idx [n, B])`` -> (lv1 [n*B, d], lv2
-    [n*B, d], per-batch losses [n]) through the folded eval model
-    (``TrainParams.fold()``) and eval-mode assembly (no augmentation)."""
+    """-> ``runner(params, entity_idx)`` -> (lv1 [n*B, d], lv2 [n*B, d],
+    per-batch losses [n]) through the folded eval model
+    (``TrainParams.fold()``) and eval-mode assembly (no augmentation), over
+    ``pool.epoch_batches`` as ``make_epoch_runner``. With a mesh, each
+    batch's codes are gathered over the ranks (rank-major inside a batch),
+    the same on every rank."""
     from audio_sheet_retrieval_tpu_torch.train.engine import make_eval_fns
 
     valid_loss = make_eval_fns(cfg, pool.mesh)[1]
 
     def runner(params, entity_idx: np.ndarray):
-        coords = pool.put(pool.entity_coords[entity_idx])
-        onsets = pool.put(pool.entity_onsets[entity_idx])
         lv1s, lv2s, losses = [], [], []
-        for c, o in zip(coords, onsets):
-            loss, lv1, lv2 = valid_loss(params,
-                                        *pool.assemble(c, o, train=False))
+        for x1, x2 in pool.epoch_batches(entity_idx, train=False):
+            loss, lv1, lv2 = valid_loss(params, x1, x2)
             lv1s.append(lv1)
             lv2s.append(lv2)
             losses.append(loss)

@@ -21,9 +21,10 @@ collectives are written out where the step needs them:
   averaged: each rank's gradient is its share of one global loss).
 
 The backend is the caller's choice: ``nccl`` for one card a rank, ``gloo``
-for CPU ranks (and for several ranks sharing one card). The JAX package's
-``make_hybrid_mesh`` (a ``db`` axis inside a slice) waits for the sharded
-gallery, which brings that axis.
+for CPU ranks (and for several ranks sharing one card). The collectives run
+over the default process group: the data axis is the only one. The JAX
+package's ``make_hybrid_mesh`` (a ``db`` axis inside a slice) waits for
+the sharded gallery, which brings that axis and its sub-groups.
 """
 
 from __future__ import annotations
@@ -35,8 +36,6 @@ from typing import Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-
-DATA_AXIS = "data"
 
 
 def process_index() -> int:
@@ -50,13 +49,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, mesh):
         ctx.mesh = mesh
         y = x.clone()
-        dist.all_reduce(y, group=mesh.group)
+        dist.all_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.mesh.group)
+        dist.all_reduce(grad)
         return grad, None
 
 
@@ -73,14 +72,12 @@ class _Gather(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """One rank's view of the data axis: its process group (None: the
-    default group), rank, world size, device and backend."""
+    """One rank's view of the data axis (the default process group): its
+    rank, world size and device."""
 
-    group: Optional[dist.ProcessGroup]
     rank: int
     world_size: int
     device: torch.device
-    backend: str
 
     def batch_slice(self, batch_size: int) -> slice:
         """This rank's rows of a global batch of ``batch_size``."""
@@ -97,20 +94,20 @@ class DataMesh:
     def broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
         """Overwrite each tensor with rank 0's, in place."""
         for t in tensors:
-            dist.broadcast(t, src=0, group=self.group)
+            dist.broadcast(t, src=0)
 
     def broadcast_values(self, values: Sequence[float]) -> List[float]:
         """Rank 0's numbers on every rank (float64, exact for Python
         floats and integers below 2**53)."""
         t = torch.tensor(list(values), dtype=torch.float64,
                          device=self.device)
-        dist.broadcast(t, src=0, group=self.group)
+        dist.broadcast(t, src=0)
         return t.tolist()
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[D, *x.shape]: every rank's ``x`` in rank order (no autograd)."""
         parts = [torch.empty_like(x) for _ in range(self.world_size)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
+        dist.all_gather(parts, x.contiguous())
         return torch.stack(parts)
 
     def all_gather_host(self, arr: np.ndarray) -> np.ndarray:
@@ -136,7 +133,7 @@ class DataMesh:
         if not grads:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=self.group)
+        dist.all_reduce(flat)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -154,18 +151,22 @@ def make_mesh(backend: str, *, device=None, init_method: str = "env://",
     (``device`` defaults to the CPU; name a card to put the ranks' tensors
     there). ``init_method`` / ``rank`` / ``world_size`` go to
     ``init_process_group``; the default ``env://`` reads ``torchrun``'s
-    environment. A group already started with another backend raises."""
+    environment. A group already started with another backend, rank or
+    world size than the ones given raises."""
     if not dist.is_initialized():
         kw = {} if rank is None else dict(rank=rank, world_size=world_size)
         dist.init_process_group(backend, init_method=init_method, **kw)
-    if dist.get_backend() != backend:
-        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
-                         f"not {backend!r}")
-    rank, world = dist.get_rank(), dist.get_world_size()
+    running = (dist.get_backend(), dist.get_rank(), dist.get_world_size())
+    for name, want, got in zip(("backend", "rank", "world size"),
+                               (backend, rank, world_size), running):
+        if want is not None and want != got:
+            raise ValueError(f"the process group's {name} is {got!r}, "
+                             f"not {want!r}")
+    _, rank, world = running
     if device is None:
         device = (f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}"
                   if backend == "nccl" else "cpu")
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return DataMesh(None, rank, world, device, backend)
+    return DataMesh(rank, world, device)

@@ -7,8 +7,8 @@ large corpus must be *partitioned*. Here the pieces are assigned to the
 ranks (balanced by strip width), each rank stacks only its own pieces'
 strips and spectrograms into one plane on its card, padded to the
 common shape, and contributes B/D samples of every global batch, drawn
-from its own pieces. The train step (``train.engine.make_train_step``
-with the mesh) consumes the slices as it does a replicated pool's.
+from its own pieces. ``data.device_pool``'s epoch and embed runners drive
+it through ``epoch_batches``, as they drive a replicated pool.
 
 Semantics (the JAX module's): each rank samples from its own piece
 subset, so a global batch is stratified by shard rather than iid over the
@@ -62,7 +62,7 @@ def _shard_arrays(pool: DevicePool, strip_h: int, w_max: int, t_max: int,
                   n_max: int) -> Dict[str, np.ndarray]:
     """One shard's planes padded to the common shape (white strip, zero
     spectrogram), its entity tables wrapped around to ``n_max`` rows."""
-    s, sp = pool.strip, pool.spec
+    s, sp = pool.strip.numpy(), pool.spec.numpy()
     strip = np.full((strip_h, w_max), 255, np.uint8)
     strip[:s.shape[0], :s.shape[1]] = s
     spec = np.zeros((pool.bins, t_max), np.float32)
@@ -110,7 +110,7 @@ class ShardedDevicePool:
             [o2c_maps[i] for i in g], spec_context=spec_context,
             sheet_context=sheet_context, staff_height=staff_height,
             data_augmentation=data_augmentation, rng=self.rng,
-            shuffle=False, host_only=True) for g in groups]
+            shuffle=False, device="cpu") for g in groups]
         strip_h = max(p.strip_h for p in shard_pools)
         w_max = max(p.strip.shape[1] for p in shard_pools)
         t_max = max(p.spec.shape[1] for p in shard_pools)
@@ -184,7 +184,7 @@ class ShardedDevicePool:
             sheet_context=sheet_context, staff_height=staff_height,
             data_augmentation=data_augmentation,
             rng=np.random.default_rng(shard_seeds[mesh.rank]),
-            shuffle=False, host_only=True)
+            shuffle=False, device="cpu")
         del pieces
         dims = mesh.all_gather_host(np.asarray(
             [pool.strip_h, pool.strip.shape[1], pool.spec.shape[1],
@@ -229,50 +229,11 @@ class ShardedDevicePool:
                               self.coords_plane[local_idx],
                               self.onsets_plane[local_idx], draws, train)
 
-
-def make_sharded_epoch_runner(cfg, pool: ShardedDevicePool):
-    """-> ``runner(state, idx [n, D, B/D])`` -> (losses [n], corrs [n, d]):
-    the sharded counterpart of ``device_pool.make_epoch_runner``. This
-    rank uploads its column of the index matrix once, assembles its slice
-    of each global batch from its own plane and runs the mesh's train
-    step."""
-    from audio_sheet_retrieval_tpu_torch.train.engine import make_train_step
-
-    train_step = make_train_step(cfg, pool.mesh)
-
-    def runner(state, idx: np.ndarray):
-        losses, corrs = [], []
-        for local in pool.put(idx[:, pool.mesh.rank]):
-            m = train_step(state, *pool.assemble(local, train=True))
-            losses.append(m["loss"])
-            corrs.append(m["corr"])
-        return torch.stack(losses), torch.stack(corrs)
-
-    return runner
-
-
-def make_sharded_embed_runner(cfg, pool: ShardedDevicePool):
-    """-> ``runner(params, idx [n, D, B/D])`` -> (lv1 [n*B, d], lv2
-    [n*B, d], per-batch losses [n]): eval-mode assembly of this rank's
-    slices through the folded model, each batch's codes gathered over the
-    ranks (rank-major inside a batch, as the JAX module's), the same on
-    every rank; the sharded counterpart of
-    ``device_pool.make_embed_runner``."""
-    from audio_sheet_retrieval_tpu_torch.train.engine import make_eval_fns
-
-    valid_loss = make_eval_fns(cfg, pool.mesh)[1]
-
-    def runner(params, idx: np.ndarray):
-        lv1s, lv2s, losses = [], [], []
-        for local in pool.put(idx[:, pool.mesh.rank]):
-            loss, lv1, lv2 = valid_loss(params,
-                                        *pool.assemble(local, train=False))
-            lv1s.append(lv1)
-            lv2s.append(lv2)
-            losses.append(loss)
-        return torch.cat(lv1s), torch.cat(lv2s), torch.stack(losses)
-
-    return runner
+    def epoch_batches(self, idx: np.ndarray, train: bool = True):
+        """Yield this rank's slice of each global batch of ``idx`` ([n, D,
+        B/D] per-shard indices; this rank's column uploaded once)."""
+        for local in self.put(idx[:, self.mesh.rank]):
+            yield self.assemble(local, train)
 
 
 class ShardedBatchIterator:

@@ -446,14 +446,8 @@ def fit(
     n_valid_cca = int(min(1000, data["valid"].shape[0]))
     epoch_idx = 0
     if device_data:
-        if sharded:
-            epoch_runner = sharded_pool.make_sharded_epoch_runner(
-                cfg, data["train"])
-            embed_tr = sharded_pool.make_sharded_embed_runner(
-                cfg, data["train"])
-        else:
-            epoch_runner = device_pool.make_epoch_runner(cfg, data["train"])
-            embed_tr = device_pool.make_embed_runner(cfg, data["train"])
+        epoch_runner = device_pool.make_epoch_runner(cfg, data["train"])
+        embed_tr = device_pool.make_embed_runner(cfg, data["train"])
         embed_va = device_pool.make_embed_runner(cfg, data["valid"])
         fused_eval = make_fused_eval(cfg)
     data_objs = (("train_pool", data.get("train")),

@@ -175,11 +175,11 @@ exits non-zero):
    holding kernels. b. this script started twice more
    (``--mesh-rank``) as two gloo ranks sharing card 0, at full width:
    one step on each half of phase 11's batch against one rank's step on
-   the whole and a float64 step; a 3-epoch ``fit`` over a
-   ``ShardedDevicePool`` of phase 11's corpus held to phase 11's learning
-   criteria, the ranks equal epoch for epoch; a fit stopped after epoch 2
-   and resumed on both ranks, bit for bit as the uninterrupted one
-   (deterministic cuDNN); the step ms and peak memory a rank (two
+   the whole and a float64 step; under deterministic cuDNN, a 3-epoch
+   ``fit`` over a ``ShardedDevicePool`` of phase 11's corpus held to phase
+   11's learning criteria, the ranks equal epoch for epoch, and a fit
+   stopped after epoch 2 and resumed on both ranks, bit for bit as the
+   uninterrupted one; the step ms and peak memory a rank (two
    processes on one card, not a scaling figure). c. once more as a
    one-rank NCCL group: one fit epoch over replicated device pools, bit
    for bit as without a group.
@@ -203,6 +203,7 @@ traceback's as ``traceback_launches``). The last line is ``{"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1433,7 +1434,8 @@ def valid_npz(tmp, pieces):
 def learning_fit(torch, ctx, data, iters, count,
                  run_eval_atol=FIT_MRR_ATOL, keep_curves=None):
     """A full-width ``fit`` of ``TRAIN_EPOCHS`` epochs over ``data`` with
-    the iterators ``iters``, held to the learning criteria: train loss
+    the iterators ``iters`` under deterministic algorithms (``deterministic``),
+    held to the learning criteria: train loss
     falls, validation MRR rises above epoch 1's and above twice chance, no
     NaN, kernel 1 launched at least twice an epoch; the last evaluation's
     ranks through kernel 1 equal the full argsort's, and the dump read back
@@ -1465,7 +1467,8 @@ def learning_fit(torch, ctx, data, iters, count,
             launches.update(read_launches())
             return out
 
-        best, best_map = count(run)
+        with deterministic(torch):
+            best, best_map = count(run)
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if keep_curves is not None:
             shutil.copy(os.path.join(tmp, "results.pkl"), keep_curves)
@@ -1513,6 +1516,28 @@ def fit_numbers(recs) -> list:
                  eval_s=r["eval_seconds"]) for r in recs]
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic-
+    algorithms check (warning mode) inside the block, the flags restored
+    after. With cuDNN's default choice the backward-weight convolutions of
+    blocks 0-3 and 8 differ run to run, and with them a 3-epoch fit's
+    trajectory: one such fit in about eight did not learn (PERF.md §7);
+    ``scripts/torch_fit_seeds.py`` holds the deterministic fit to the
+    learning criteria over five seed pairs."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+
+
 def resume_bit_identical(torch, ctx, data_and_iters, count):
     """Kill and resume, bit for bit, under deterministic cuDNN: a 4-epoch
     ``fit`` against one stopped after 2 epochs and resumed from its
@@ -1525,11 +1550,6 @@ def resume_bit_identical(torch, ctx, data_and_iters, count):
     from audio_sheet_retrieval_tpu_torch.train import engine
 
     dev, cfg = ctx["dev"], ctx["cfg"]
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
     res_cfg = dataclasses.replace(cfg, k_samples=150, patience=50)
 
     def resume_run(outdir, resume_file, n_epochs):
@@ -1544,18 +1564,13 @@ def resume_bit_identical(torch, ctx, data_and_iters, count):
         return [(r["train_loss"], r["valid_loss"], r["map_va"], r["map_tr"])
                 for r in recs]
 
-    try:
-        with tempfile.TemporaryDirectory() as tmp, \
-                warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            snap = os.path.join(tmp, "fit_state.pkl")
-            full = resume_run(os.path.join(tmp, "full"), None, 4)
-            first = resume_run(os.path.join(tmp, "p1"), snap, 2)
-            second = resume_run(os.path.join(tmp, "p2"), snap, 4)
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-            flags
+    with deterministic(torch), tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        snap = os.path.join(tmp, "fit_state.pkl")
+        full = resume_run(os.path.join(tmp, "full"), None, 4)
+        first = resume_run(os.path.join(tmp, "p1"), snap, 2)
+        second = resume_run(os.path.join(tmp, "p2"), snap, 4)
     nondeterministic = sorted({str(w.message)[:160] for w in caught
                                if "determinis" in str(w.message)})
     assert first == full[:2] and second == full[2:], (full, first, second)
@@ -3217,16 +3232,16 @@ def mesh_data(mesh, dev, pieces, augment, seed, k_samples, batch,
 
 
 def mesh_fit(torch, cfg, mesh, dev, data_and_iters, epochs, out,
-             resume=None):
-    """``fit`` from the seed-5 init -> its epoch records as float hex
-    (train and valid loss, valid and train MRR), and the record."""
+             resume=None, init_seed=5):
+    """``fit`` from the ``init_seed`` init -> its epoch records as float
+    hex (train and valid loss, valid and train MRR), and the record."""
     from audio_sheet_retrieval_tpu_torch.models import cca_model
     from audio_sheet_retrieval_tpu_torch.train import engine
 
     data, tr_it, va_it = data_and_iters()
     recs = []
-    engine.fit(cca_model.init_model(torch.Generator().manual_seed(5), cfg,
-                                    device="cpu"),
+    engine.fit(cca_model.init_model(torch.Generator().manual_seed(init_seed),
+                                    cfg, device="cpu"),
                data, cfg, tr_it, va_it, device=dev, out_path=out, num_epochs=epochs, verbose=False,
                on_epoch=recs.append, resume_file=resume, mesh=mesh)
     return [[float(r[k]).hex() for k in ("train_loss", "valid_loss",
@@ -3234,17 +3249,13 @@ def mesh_fit(torch, cfg, mesh, dev, data_and_iters, epochs, out,
             for r in recs], recs
 
 
-def deterministic(torch):
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-
-
 def rank_gloo(torch, mesh, work) -> dict:
     """16b, on one of two ranks sharing card 0 over gloo: the step on this
-    rank's half of phase 11's batch; a 3-epoch fit over a ShardedDevicePool
-    of phase 11's corpus; a fit stopped after epoch 2 and resumed against
-    the uninterrupted one (deterministic cuDNN)."""
+    rank's half of phase 11's batch; then, under deterministic cuDNN, a
+    3-epoch fit over a ShardedDevicePool of phase 11's corpus and a fit
+    stopped after epoch 2 and resumed against the uninterrupted one.
+    ``scripts/torch_fit_seeds.py`` holds this fit to the learning criteria
+    over several seeds."""
     import pickle
 
     from audio_sheet_retrieval_tpu_torch import config
@@ -3268,47 +3279,50 @@ def rank_gloo(torch, mesh, work) -> dict:
     res["step_max_memory_allocated_mb"] = \
         torch.cuda.max_memory_allocated() / 2**20
 
-    augment = config.load_experiment_config("mutopia_full_aug").augment
-    pieces = mesh_pieces(TRAIN_PIECES["n_train"], TRAIN_PIECES["n_valid"],
-                         TRAIN_PIECES["n_onsets"], 23)
-    fit_cfg = dataclasses.replace(cfg, max_epochs=TRAIN_EPOCHS)
-    zero_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    dev = mesh.device
-    hexes, recs = mesh_fit(torch, fit_cfg, mesh, dev, lambda: mesh_data(
-        mesh, dev, pieces, augment, 23, cfg.k_samples, cfg.batch_size),
-        TRAIN_EPOCHS, os.path.join(work, "fit"))
-    res["fit"] = dict(seconds=time.perf_counter() - t0, epochs_hex=hexes,
-                      epochs=[dict(
-                          number=r["number"], train_loss=r["train_loss"],
-                          map_va=r["map_va"], map_tr=r["map_tr"],
-                          updates_per_s=r["updates_per_s"],
-                          eval_s=r["eval_seconds"]) for r in recs],
-                      max_memory_allocated_mb=torch.cuda.max_memory_allocated()
-                      / 2**20, launches=read_launches())
+    with deterministic(torch):
+        augment = config.load_experiment_config("mutopia_full_aug").augment
+        pieces = mesh_pieces(TRAIN_PIECES["n_train"],
+                             TRAIN_PIECES["n_valid"],
+                             TRAIN_PIECES["n_onsets"], 23)
+        fit_cfg = dataclasses.replace(cfg, max_epochs=TRAIN_EPOCHS)
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dev = mesh.device
+        hexes, recs = mesh_fit(
+            torch, fit_cfg, mesh, dev, lambda: mesh_data(
+                mesh, dev, pieces, augment, 23, cfg.k_samples,
+                cfg.batch_size), TRAIN_EPOCHS, os.path.join(work, "fit"))
+        res["fit"] = dict(
+            seconds=time.perf_counter() - t0, epochs_hex=hexes,
+            epochs=[dict(number=r["number"], train_loss=r["train_loss"],
+                         map_va=r["map_va"], map_tr=r["map_tr"],
+                         updates_per_s=r["updates_per_s"],
+                         eval_s=r["eval_seconds"]) for r in recs],
+            max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+            / 2**20, launches=read_launches())
 
-    deterministic(torch)
-    res_cfg = dataclasses.replace(cfg, k_samples=2 * cfg.batch_size,
-                                  patience=50)
-    small = mesh_pieces(RESUME_PIECES["n_train"], RESUME_PIECES["n_valid"],
-                        RESUME_PIECES["n_onsets"], 5)
+        res_cfg = dataclasses.replace(cfg, k_samples=2 * cfg.batch_size,
+                                      patience=50)
+        small = mesh_pieces(RESUME_PIECES["n_train"],
+                            RESUME_PIECES["n_valid"],
+                            RESUME_PIECES["n_onsets"], 5)
 
-    def small_data():
-        return mesh_data(mesh, dev, small, augment, 5, res_cfg.k_samples,
-                         cfg.batch_size)
+        def small_data():
+            return mesh_data(mesh, dev, small, augment, 5,
+                             res_cfg.k_samples, cfg.batch_size)
 
-    zero_launches()
-    snap = os.path.join(work, "fit_state.pkl")
-    full = mesh_fit(torch, res_cfg, mesh, dev, small_data, 4,
-                    os.path.join(work, "full"))[0]
-    first = mesh_fit(torch, res_cfg, mesh, dev, small_data, 2,
-                     os.path.join(work, "part"), snap)[0]
-    second = mesh_fit(torch, res_cfg, mesh, dev, small_data, 4,
-                      os.path.join(work, "part"), snap)[0]
-    res["resume"] = dict(full=full, first=first, second=second,
-                         launches=read_launches())
-    assert first == full[:2] and second == full[2:], res["resume"]
+        zero_launches()
+        snap = os.path.join(work, "fit_state.pkl")
+        full = mesh_fit(torch, res_cfg, mesh, dev, small_data, 4,
+                        os.path.join(work, "full"))[0]
+        first = mesh_fit(torch, res_cfg, mesh, dev, small_data, 2,
+                         os.path.join(work, "part"), snap)[0]
+        second = mesh_fit(torch, res_cfg, mesh, dev, small_data, 4,
+                          os.path.join(work, "part"), snap)[0]
+        res["resume"] = dict(full=full, first=first, second=second,
+                             launches=read_launches())
+        assert first == full[:2] and second == full[2:], res["resume"]
     return res
 
 
@@ -3318,17 +3332,19 @@ def rank_nccl(torch, mesh, work) -> dict:
     from audio_sheet_retrieval_tpu_torch import config
     from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
 
-    deterministic(torch)
     cfg = get_model_config("mutopia_ccal_cont_rsz")
     augment = config.load_experiment_config("mutopia_full_aug").augment
     pieces = mesh_pieces(TRAIN_PIECES["n_train"], TRAIN_PIECES["n_valid"],
                          TRAIN_PIECES["n_onsets"], 23)
     zero_launches()
     runs = {}
-    for name, m in (("mesh", mesh), ("none", None)):
-        runs[name] = mesh_fit(torch, cfg, m, mesh.device, lambda: mesh_data(
-            m, mesh.device, pieces, augment, 23, cfg.k_samples,
-            cfg.batch_size, sharded=False), 1, os.path.join(work, name))[0]
+    with deterministic(torch):
+        for name, m in (("mesh", mesh), ("none", None)):
+            runs[name] = mesh_fit(
+                torch, cfg, m, mesh.device, lambda: mesh_data(
+                    m, mesh.device, pieces, augment, 23, cfg.k_samples,
+                    cfg.batch_size, sharded=False), 1,
+                os.path.join(work, name))[0]
     assert runs["mesh"] == runs["none"], runs
     return dict(epochs_hex=runs, launches=read_launches())
 
@@ -3365,19 +3381,31 @@ def spawn_ranks(world: int, backend: str, work: str) -> list:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
-         str(world), port, backend, work], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    outs = []
+    # each rank writes into a file of its own: a pipe that no one reads
+    # while this process waits on another rank could block a rank's write,
+    # and with it a collective
+    logs = [os.path.join(work, f"{backend}_rank{r}.log")
+            for r in range(world)]
+    procs = []
     try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as fp:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--mesh-rank", str(r), str(world), port, backend, work],
+                    stdout=fp, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_TIMEOUT
         for p in procs:
-            outs.append(p.communicate(timeout=MESH_TIMEOUT)[0])
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as fp:
+            outs.append(fp.read())
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             raise SystemExit(f"phase 16 {backend} rank {r} exited "

@@ -3,8 +3,8 @@ the CPU: two ranks of a gloo process group, each a subprocess running
 ``tests/torch_parallel_child.py``, against one process on the
 concatenated batch and against the JAX package.
 
-Every spawn has its own free port and its own ``communicate`` timeout, so
-no test can hang the suite. Sizes are small (``num_filters=4``,
+Every spawn has its own free port and its own deadline, so no test can
+hang the suite. Sizes are small (``num_filters=4``,
 ``dim_latent=8``, batch 16, as the JAX package's ``tests/test_fit_mesh.py``).
 
 Tolerances, each with its reason:
@@ -28,6 +28,7 @@ import re
 import socket
 import subprocess
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -65,22 +66,34 @@ def _free_port():
 
 
 def spawn(scenario, outdir, world=2) -> list:
-    """Run ``scenario`` on ``world`` ranks -> each rank's output."""
+    """Run ``scenario`` on ``world`` ranks -> each rank's output. Each
+    rank writes into a file of its own (a pipe that no one reads while
+    the parent waits on another rank could block a rank's write, and with
+    it a collective), and all ranks share one deadline."""
     port = str(_free_port())
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    procs = [subprocess.Popen(
-        [sys.executable, CHILD, str(r), str(world), port, scenario,
-         str(outdir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env=env) for r in range(world)]
-    outs = []
+    logs = [os.path.join(outdir, f"{scenario}_rank{r}.log")
+            for r in range(world)]
+    procs = []
     try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as fp:
+                procs.append(subprocess.Popen(
+                    [sys.executable, CHILD, str(r), str(world), port,
+                     scenario, str(outdir)], stdout=fp,
+                    stderr=subprocess.STDOUT, env=env))
+        deadline = time.monotonic() + TIMEOUT
         for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT)[0])
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as fp:
+            outs.append(fp.read())
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"{scenario} rank {r}:\n{out[-4000:]}"
         assert f"OK {r}" in out, out[-2000:]
@@ -314,3 +327,26 @@ def test_one_rank_group_fits_bit_identically_to_no_group(tmp_path):
     assert len(lines) == 2 and lines[0] == lines[1]
     best = re.findall(r"BEST 0: (.+)", out)
     assert len(best) == 2 and best[0] == best[1]
+
+
+@pytest.mark.parametrize("given", [dict(backend="nccl"),
+                                   dict(rank=1, world_size=2)],
+                         ids=["backend", "rank_and_world"])
+def test_make_mesh_refuses_a_group_it_does_not_match(given):
+    """A group already running is joined only as it runs: another backend,
+    rank or world size than the caller names raises."""
+    import torch.distributed as dist
+
+    from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm
+
+    port = _free_port()
+    m = pm.make_mesh("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                     world_size=1)
+    try:
+        assert (m.rank, m.world_size, m.device) == (0, 1, torch.device("cpu"))
+        args = dict(dict(backend="gloo", rank=0, world_size=1), **given)
+        with pytest.raises(ValueError, match="process group"):
+            pm.make_mesh(args.pop("backend"), **args)
+        assert pm.make_mesh("gloo", rank=0, world_size=1) == m
+    finally:
+        dist.destroy_process_group()
