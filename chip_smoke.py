@@ -181,8 +181,8 @@ exits non-zero):
    stopped after epoch 2 and resumed on both ranks, bit for bit as the
    uninterrupted one; the step ms and peak memory a rank (two
    processes on one card, not a scaling figure). c. once more as a
-   one-rank NCCL group: one fit epoch over replicated device pools, bit
-   for bit as without a group.
+   one-rank NCCL group: one fit epoch (20 steps) over replicated device
+   pools, bit for bit as without a group.
 
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
@@ -3328,11 +3328,13 @@ def rank_gloo(torch, mesh, work) -> dict:
 
 def rank_nccl(torch, mesh, work) -> dict:
     """16c, a one-rank NCCL group: one epoch of the fit over replicated
-    device pools with the mesh and without, deterministic cuDNN."""
+    device pools with the mesh and without, deterministic cuDNN; the epoch
+    cut to 20 steps (bit-identity needs no more)."""
     from audio_sheet_retrieval_tpu_torch import config
     from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
 
     cfg = get_model_config("mutopia_ccal_cont_rsz")
+    cfg = dataclasses.replace(cfg, k_samples=20 * cfg.batch_size)
     augment = config.load_experiment_config("mutopia_full_aug").augment
     pieces = mesh_pieces(TRAIN_PIECES["n_train"], TRAIN_PIECES["n_valid"],
                          TRAIN_PIECES["n_onsets"], 23)
