@@ -21,10 +21,17 @@ collectives are written out where the step needs them:
   averaged: each rank's gradient is its share of one global loss).
 
 The backend is the caller's choice: ``nccl`` for one card a rank, ``gloo``
-for CPU ranks (and for several ranks sharing one card). The collectives run
-over the default process group: the data axis is the only one. The JAX
-package's ``make_hybrid_mesh`` (a ``db`` axis inside a slice) waits for
-the sharded gallery, which brings that axis and its sub-groups.
+for CPU ranks (and for several ranks sharing one card). ``DataMesh``'s
+collectives run over the default process group: training is data-parallel
+over every rank, as the JAX package's dry run shards the batch over every
+mesh axis.
+
+``make_hybrid_mesh`` (the JAX function of that name) lays named axes,
+``("data", "db")``, over the ranks of the default group, row-major
+(``rank = data_index * n_db + db_index``), and gives each axis its own
+sub-group: the sharded gallery (``parallel/gallery.py``) gathers its
+candidates over ``db``, which lies inside a node, and sums its CCA moments
+over ``data``, which may cross nodes.
 """
 
 from __future__ import annotations
@@ -138,6 +145,141 @@ class DataMesh:
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
+
+
+DATA_AXIS = "data"
+DB_AXIS = "db"
+
+
+def rank_grid(ici_shape: Sequence[int],
+              dcn_shape: Sequence[int]) -> np.ndarray:
+    """The ranks laid out on the mesh: axis i of size ``ici_shape[i] *
+    dcn_shape[i]``, ranks in row-major order (the JAX function's reshape
+    of the device list)."""
+    if len(ici_shape) != len(dcn_shape):
+        raise ValueError(f"ici_shape {tuple(ici_shape)} and dcn_shape "
+                         f"{tuple(dcn_shape)} differ in length")
+    shape = tuple(int(i) * int(d) for i, d in zip(ici_shape, dcn_shape))
+    return np.arange(int(np.prod(shape))).reshape(shape)
+
+
+def check_axes_within_nodes(grid: np.ndarray, dcn_shape: Sequence[int],
+                            axis_names: Sequence[str],
+                            local_world_size: int) -> None:
+    """Raise if an axis that should stay inside a node (``dcn_shape[i] ==
+    1``) has a group whose ranks lie on two nodes (node = rank //
+    ``local_world_size``): its collectives would cross the slow link this
+    layout exists to avoid."""
+    for a, (name, dcn) in enumerate(zip(axis_names, dcn_shape)):
+        if dcn != 1:
+            continue
+        lines = np.moveaxis(grid, a, -1).reshape(-1, grid.shape[a])
+        for line in lines:
+            nodes = set((line // local_world_size).tolist())
+            if len(nodes) > 1:
+                raise ValueError(
+                    f"axis {name!r} would span nodes {sorted(nodes)} "
+                    f"(ranks {line.tolist()}, {local_world_size} a node); "
+                    f"put it inside a node")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxis:
+    """One axis as this rank sees it: its index on the axis, the axis's
+    size, the global ranks of its group in axis order, and the group."""
+
+    index: int
+    size: int
+    ranks: tuple
+    group: object
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMesh:
+    """One rank's view of a mesh of named axes over the default group."""
+
+    rank: int
+    world_size: int
+    device: torch.device
+    axes: dict    # name -> MeshAxis
+
+    @property
+    def shape(self) -> dict:
+        return {name: ax.size for name, ax in self.axes.items()}
+
+    def axis_index(self, name: str) -> int:
+        return self.axes[name].index
+
+    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """[size, *x.shape]: ``x`` of every rank of this rank's group on
+        ``axis``, in axis order (no autograd)."""
+        ax = self.axes[axis]
+        if ax.size == 1:
+            return x[None]
+        parts = [torch.empty_like(x) for _ in range(ax.size)]
+        dist.all_gather(parts, x.contiguous(), group=ax.group)
+        return torch.stack(parts)
+
+    def all_reduce_sum(self, tensors: Sequence[torch.Tensor],
+                       axis: str) -> List[torch.Tensor]:
+        """Each tensor summed over this rank's group on ``axis``, in one
+        collective (they share a dtype)."""
+        ax = self.axes[axis]
+        if ax.size == 1:
+            return list(tensors)
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=ax.group)
+        out, offset = [], 0
+        for t in tensors:
+            out.append(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+        return out
+
+
+def make_hybrid_mesh(ici_shape: Sequence[int], dcn_shape: Sequence[int],
+                     axis_names: Sequence[str] = (DATA_AXIS, DB_AXIS), *,
+                     device) -> HybridMesh:
+    """This rank's ``HybridMesh`` over the default process group (started
+    by ``make_mesh`` or ``init_process_group``).
+
+    Axis i spans ``dcn_shape[i]`` nodes and ``ici_shape[i]`` ranks inside
+    a node; the ranks lie row-major on the mesh, so with consecutive ranks
+    a node (``torchrun``'s layout) an axis with ``dcn_shape[i] == 1`` stays
+    inside a node. The standard layout keeps the gallery's bandwidth-hungry
+    candidate exchange inside a node and sums the CCA moments across them:
+
+        mesh = make_hybrid_mesh((1, 8), (n_nodes, 1), ("data", "db"),
+                                device=...)
+
+    Every rank creates every axis's sub-groups in the same order
+    (``new_group`` is collective over the default group). On CUDA ranks an
+    in-node axis whose group would span nodes (``LOCAL_WORLD_SIZE`` ranks a
+    node; the whole group when unset) raises, as the JAX function raises
+    on real hardware rather than reshape."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_hybrid_mesh needs the default process "
+                           "group: start it with make_mesh")
+    if len(axis_names) != len(ici_shape):
+        raise ValueError(f"{len(axis_names)} axis names for "
+                         f"{len(ici_shape)} axes")
+    grid = rank_grid(ici_shape, dcn_shape)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if grid.size != world:
+        raise ValueError(f"mesh {grid.shape} holds {grid.size} ranks, the "
+                         f"group {world}")
+    device = torch.device(device)
+    if device.type == "cuda":
+        check_axes_within_nodes(grid, dcn_shape, axis_names, int(
+            os.environ.get("LOCAL_WORLD_SIZE", world)))
+    coords = [int(c) for c in np.argwhere(grid == rank)[0]]
+    axes = {}
+    for a, name in enumerate(axis_names):
+        for line in np.moveaxis(grid, a, -1).reshape(-1, grid.shape[a]):
+            ranks = tuple(int(r) for r in line)
+            group = dist.new_group(list(ranks))
+            if rank in ranks:
+                axes[name] = MeshAxis(coords[a], len(ranks), ranks, group)
+    return HybridMesh(rank, world, device, axes)
 
 
 def make_mesh(backend: str, *, device=None, init_method: str = "env://",

@@ -184,17 +184,51 @@ exits non-zero):
    one-rank NCCL group: one fit epoch (20 steps) over replicated device
    pools, bit for bit as without a group.
 
+17. the sharded gallery: this script started four more times as four
+   gloo ranks sharing card 0, laid out as ``make_hybrid_mesh((1, 2), (2,
+   1), ("data", "db"))`` (data 2 x db 2), at full width (phase 4's
+   corpus and checkpoint, float32, TF32 off); the parent writes the
+   corpus, the model, phase 10's latent pairs and phase 8's 10^6-row
+   gallery into the work directory and computes the single card's answers.
+   a. each rank's axis indices and sub-groups. b.
+   ``build_sharded_sheet_gallery`` of the 60 strips over db (30 pieces a
+   shard): the valid rows within 1e-5 of the single card's stride-grid
+   build of the same strips (phase 4's own gallery sits on the noteheads,
+   an arm the JAX sharded build lacks), the same ids, padding rows zero.
+   c. ``make_sharded_piece_query`` of phase 4's 100-excerpt queries over
+   phase 4's gallery (its 12,000 rows as host rows, 6,000 a shard) and
+   over the sharded build: the single card's counts bit for bit on every
+   rank (both db ranks, both data replicas); rank<=1 >= 59/60 over phase
+   4's gallery (the stride grid's is reported: the checkpoint ranks
+   notehead-centred windows). d. ``build_sharded_audio_gallery``
+   (u16) and the raw ``make_sharded_sheet_query`` of the 60 strips: rows
+   within 1e-5 of phase 7's audio gallery, its counts bit for bit. e.
+   ``sharded_gallery_search`` of phase 8's gallery at Q = 100, k = 25:
+   the indices of kernel 1 over the whole gallery on one card, scores
+   within TOPK_ATOL, whether bit-identical. f. ``sharded_cca_fit`` over
+   data of phase 10's 10,000 pairs within 1e-3 of its float64 fit. g.
+   ``python -m audio_sheet_retrieval_tpu_torch.parallel.dryrun --ranks 4``
+   on card 0: exit 0, six sections. h. each rank's build seconds, query
+   p50 and peak memory (four processes on one card, not a scaling
+   figure); kernel 1 at a db shard's shape (Q = 100, N = 6,000) beside
+   its plain version, ``torch.topk(q @ g.T, k)`` and its bound. Phases 16
+   and 17 start their ranks through one launcher (``spawn_ranks`` with a
+   scenario name, ``parallel.dryrun.spawn_ranks`` underneath: a log file
+   a rank, one deadline).
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
 phases 11-16 (``fit``, ``run_eval``, the CLI, the resume runs, each build
 and query set of phase 13, each ``audio2sheet_align`` run of phase 14,
 each command line of phase 15, the traced query and each rank process of
-phase 16, whose counts its ranks report); each of phases 4-13, 15 and 16
-must launch the top-k kernel and phase 14 both DTW kernels once for each
-piece it aligns by ``pydtw``, and the ``kernels`` line reports the sum
-over phases 4-16 (kernel 2's bf16 launches of phase
+phases 16-17, whose counts its ranks report); each of phases 4-13, 15
+and 16 must launch the top-k kernel, phase 17 on every rank, and phase
+14 both DTW kernels once for each piece it aligns by ``pydtw``; the
+single-card references of phase 17 are not counted. The ``kernels`` line
+reports the sum over phases 4-17 (kernel 2's bf16 launches of phase
 13 among them), beside each kernel's times at the main path's shape
-(top-k: Q = 100, N = 12,000, k = 25; gather: one 6040-px strip, float32,
+(top-k: Q = 100, N = 12,000, k = 25, and at a db shard's N = 6,000
+under ``db_shard``; gather: one 6040-px strip, float32,
 its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
 after the transpose, the accumulation's launches as ``launches`` and the
 traceback's as ``traceback_launches``). The last line is ``{"ok": true,
@@ -975,6 +1009,7 @@ def phase_s2a(torch, ctx):
                       audio_emb_per_s=gal.n / build_s,
                       query_p50_ms=float(np.percentile(lat, 50) * 1000))
     ctx["s2a_codes"] = gal.gallery_n   # phase 13b's float32 control
+    ctx["s2a_gallery"] = gal           # phase 17's single-card reference
     return launches
 
 
@@ -1227,6 +1262,7 @@ def phase_eval_refine(torch, ctx):
     assert res.U.device == ctx["params"].device
     assert float((res.coeffs - fit.coeffs).abs().max()) <= 1e-5
     want = numpy_cca_coeffs(lat1.cpu().numpy(), lat2.cpu().numpy())
+    ctx["refit_pairs"] = (lat1.cpu().numpy(), lat2.cpu().numpy(), want)
     coeffs_err = float(np.abs(res.coeffs.cpu().numpy() - want).max())
     assert coeffs_err <= REFIT_COEFFS_ATOL, coeffs_err
     # the other two families and the summed moments of two shards, on the
@@ -3032,6 +3068,7 @@ REPORT_TAG = "all_split_mutopia_no_aug"   # <split>_<aug> of the dumps' names
 # held to phase 11's float32 gate, STEP_GRAD_TOL
 MESH_GRAD_TOL = 2e-3
 MESH_TIMEOUT = 600     # seconds a group of rank processes may take
+RANK_DEVICE = "cuda:0"  # the rank processes' card (a CPU rehearsal: "cpu")
 
 
 def reports_rows(argv) -> list:
@@ -3352,66 +3389,39 @@ def rank_nccl(torch, mesh, work) -> dict:
 
 
 def mesh_rank_main(argv) -> int:
-    """A rank process of phase 16 (``chip_smoke.py --mesh-rank RANK WORLD
-    PORT BACKEND WORKDIR``): joins the group on card 0, runs its part,
-    prints its result as the last line."""
+    """A rank process of phases 16-17 (``chip_smoke.py --mesh-rank RANK
+    WORLD PORT BACKEND SCENARIO WORKDIR``): joins the group on card 0,
+    runs its scenario, prints its result as the last line."""
     import torch
     import torch.distributed as dist
 
     from audio_sheet_retrieval_tpu_torch.models import encoder
     from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm
 
-    rank, world, port, backend, work = argv
+    rank, world, port, backend, scenario, work = argv
     encoder.pin_full_f32()
-    mesh = pm.make_mesh(backend, device="cuda:0",
+    mesh = pm.make_mesh(backend, device=RANK_DEVICE,
                         init_method=f"tcp://127.0.0.1:{port}",
                         rank=int(rank), world_size=int(world))
     try:
-        run = rank_gloo if backend == "gloo" else rank_nccl
-        res = run(torch, mesh, work)
+        res = RANK_SCENARIOS[scenario](torch, mesh, work)
     finally:
         dist.destroy_process_group()
     print(json.dumps({"rank": mesh.rank, "result": res}, default=_plain))
     return 0
 
 
-def spawn_ranks(world: int, backend: str, work: str) -> list:
-    """Start ``world`` rank processes of this script on card 0 and wait
-    for them -> each rank's result."""
-    import socket
+def spawn_ranks(world: int, backend: str, scenario: str, work: str) -> list:
+    """Start ``world`` rank processes of this script on card 0 running
+    ``scenario`` and wait for them (``parallel.dryrun.spawn_ranks``: a log
+    file a rank, one deadline) -> each rank's result."""
+    from audio_sheet_retrieval_tpu_torch.parallel import dryrun
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = str(s.getsockname()[1])
-    # each rank writes into a file of its own: a pipe that no one reads
-    # while this process waits on another rank could block a rank's write,
-    # and with it a collective
-    logs = [os.path.join(work, f"{backend}_rank{r}.log")
-            for r in range(world)]
-    procs = []
-    try:
-        for r, log in enumerate(logs):
-            with open(log, "w") as fp:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--mesh-rank", str(r), str(world), port, backend, work],
-                    stdout=fp, stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + MESH_TIMEOUT
-        for p in procs:
-            p.wait(timeout=max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    outs = []
-    for log in logs:
-        with open(log) as fp:
-            outs.append(fp.read())
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise SystemExit(f"phase 16 {backend} rank {r} exited "
-                             f"{p.returncode}:\n{out[-6000:]}")
+    port = str(dryrun.free_port())
+    outs = dryrun.spawn_ranks(
+        lambda r: [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                   str(r), str(world), port, backend, scenario, work],
+        world, work, f"{scenario}_{backend}", MESH_TIMEOUT)
     return [json.loads(out.strip().splitlines()[-1])["result"]
             for out in outs]
 
@@ -3445,7 +3455,7 @@ def phase_mesh(torch, ctx):
         with open(os.path.join(work, "step.pkl"), "wb") as fp:
             pickle.dump((cfg, tree, x1, x2), fp)
         t0 = time.perf_counter()
-        ranks = spawn_ranks(2, "gloo", work)
+        ranks = spawn_ranks(2, "gloo", "fit", work)
         gloo_s = time.perf_counter() - t0
         two = []
         for r in range(2):
@@ -3507,7 +3517,7 @@ def phase_mesh(torch, ctx):
 
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
-        (nccl,) = spawn_ranks(1, "nccl", work)
+        (nccl,) = spawn_ranks(1, "nccl", "nccl_fit", work)
         nccl_s = time.perf_counter() - t0
     for name, n in nccl["launches"].items():
         launches[name] += n
@@ -3517,6 +3527,349 @@ def phase_mesh(torch, ctx):
          phase_seconds=time.perf_counter() - t_phase)
     assert launches["topk_gallery"] > 0, "phase 16 ran no top-k kernel"
     return launches
+
+
+# --- phase 17: the sharded gallery and CCA fit over a data x db mesh --------
+
+GALLERY_MESH = ((1, 2), (2, 1))   # make_hybrid_mesh: data 2 x db 2
+GALLERY_ROWS_ATOL = 1e-5  # sharded rows vs the single card's: one encoder,
+                          # windows batched by piece in both
+BIG_ROWS = 1_000_000      # phase 8's gallery
+BIG_Q, BIG_K = 100, 25
+SHARD_N = 6_000           # kernel 1 timed at a db shard of phase 4's gallery
+DRYRUN_TIMEOUT = 300
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def big_gallery(torch, dev):
+    """Phase 8's 10^6-row random unit gallery, on the host."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    big = torch.randn(BIG_ROWS, 32, generator=gen, device=dev)
+    return (big / torch.linalg.vector_norm(big, dim=1, keepdim=True)
+            ).cpu().numpy()
+
+
+def rank_gallery(torch, mesh, work) -> dict:
+    """17, on one of four gloo ranks sharing card 0, a data x db mesh at
+    full width: the sharded sheet build and piece queries, the sharded
+    audio build and raw sheet queries, the sharded search of phase 8's
+    gallery, the CCA fit over data. Arrays go to ``work``; the timings and
+    launches come back as the result."""
+    import pickle
+
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.parallel import gallery as pg
+    from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+
+    dev = mesh.device
+    with open(os.path.join(work, "gallery.pkl"), "rb") as fp:
+        inp = pickle.load(fp)
+    cfg, images, specs = inp["cfg"], inp["images"], inp["specs"]
+    params = inp["params"].to(dev)
+    hmesh = pm.make_hybrid_mesh(*GALLERY_MESH, device=dev)
+    res = {"axes": {name: dict(index=ax.index, size=ax.size,
+                               ranks=list(ax.ranks))
+                    for name, ax in hmesh.axes.items()}}
+    n_pieces = len(images)
+    # warm-up: cuDNN's first calls of both encoders and kernel 1
+    warm = pg.build_sharded_sheet_gallery(hmesh, params, cfg, images[:2])
+    pg.make_sharded_piece_query(hmesh, params, cfg, warm, warm.ids, 2)(
+        *win.spec_quantize(specs[0][:, :200], 16),
+        win.linspace_starts(200, 42, 10))
+    sync(torch, dev)
+
+    zero_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sheet = pg.build_sharded_sheet_gallery(hmesh, params, cfg, images)
+    sync(torch, dev)
+    res["sheet_build_s"] = time.perf_counter() - t0
+    # phase 4's queries over phase 4's gallery (host rows, each rank
+    # uploading its block) and over the sharded build
+    counts = {}
+    for name, gal, ids in (("phase4", inp["phase4_rows"], inp["phase4_ids"]),
+                           ("build", sheet, sheet.ids)):
+        query = pg.make_sharded_piece_query(hmesh, params, cfg, gal, ids,
+                                            n_pieces, n_candidates=25)
+        counts[name], lat = [], []
+        for payload, scale, starts in accuracy.query_payloads(
+                cfg, specs, 1, 100, 16):
+            for st in starts:
+                t0 = time.perf_counter()
+                counts[name].append(query(payload, scale, st).cpu().numpy())
+                lat.append(time.perf_counter() - t0)
+        res[f"piece_query_{name}_p50_ms"] = float(np.percentile(lat, 50)
+                                                  * 1000)
+    t0 = time.perf_counter()
+    audio = pg.build_sharded_audio_gallery(hmesh, params, cfg, specs,
+                                           quantize=16)
+    sync(torch, dev)
+    res["audio_build_s"] = time.perf_counter() - t0
+    squery = pg.make_sharded_sheet_query(hmesh, params, cfg, audio,
+                                         audio.ids, n_pieces,
+                                         n_candidates=25, coding="raw")
+    s_counts, lat = [], []
+    for im in images:
+        t0 = time.perf_counter()
+        s_counts.append(squery(im, win.linspace_starts(
+            im.shape[1], cfg.input_shape_1[2], 100)).cpu().numpy())
+        lat.append(time.perf_counter() - t0)
+    res["sheet_query_p50_ms"] = float(np.percentile(lat, 50) * 1000)
+    big = np.load(os.path.join(work, "big.npy"), mmap_mode="r")
+    t0 = time.perf_counter()
+    big_s, big_i = pg.sharded_gallery_search(
+        hmesh, big, np.load(os.path.join(work, "big_q.npy")), BIG_K)
+    res["big_search_s"] = time.perf_counter() - t0
+    lat1, lat2 = inp["refit_pairs"]
+    fit = pg.sharded_cca_fit(hmesh, lat1, lat2, axis=pm.DATA_AXIS)
+    res["launches"] = read_launches()
+    res["max_memory_allocated_mb"] = (
+        torch.cuda.max_memory_allocated(dev) / 2**20
+        if dev.type == "cuda" else 0.0)
+    np.savez(os.path.join(work, f"gallery_{mesh.rank}.npz"),
+             sheet_rows=sheet.rows.cpu().numpy(), sheet_offset=sheet.offset,
+             sheet_total=sheet.total, sheet_ids=sheet.ids,
+             audio_rows=audio.rows.cpu().numpy(), audio_offset=audio.offset,
+             audio_total=audio.total, audio_ids=audio.ids,
+             counts=np.stack(counts["phase4"]),
+             build_counts=np.stack(counts["build"]),
+             s_counts=np.stack(s_counts),
+             big_s=big_s, big_i=big_i, coeffs=fit.coeffs.cpu().numpy())
+    return res
+
+
+def whole_rows(outs, key):
+    """The blocks of one data replica's db ranks, at their offsets."""
+    rows = np.zeros((int(outs[0][key + "_total"]),
+                     outs[0][key + "_rows"].shape[1]), np.float32)
+    for o in outs:
+        off = int(o[key + "_offset"])
+        rows[off:off + o[key + "_rows"].shape[0]] = o[key + "_rows"]
+    return rows
+
+
+def run_dryrun() -> dict:
+    """17g: ``python -m ...parallel.dryrun --ranks 4`` on card 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "audio_sheet_retrieval_tpu_torch.parallel."
+         "dryrun", "--ranks", "4", "--device",
+         "cpu" if RANK_DEVICE == "cpu" else "cuda", "--timeout",
+         str(DRYRUN_TIMEOUT)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=DRYRUN_TIMEOUT + 30)
+    marks = [line for line in proc.stdout.splitlines()
+             if line.startswith("[dryrun +") and line.endswith(" done")]
+    if proc.returncode != 0 or len(marks) != 6:
+        raise SystemExit(f"phase 17 dry run exited {proc.returncode} with "
+                         f"{len(marks)} of 6 sections:\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return dict(seconds=time.perf_counter() - t0, sections=marks,
+                summary=proc.stdout.strip().splitlines()[-1])
+
+
+def phase_gallery(torch, ctx):
+    """17. Four gloo ranks on card 0 as ``make_hybrid_mesh((1, 2), (2, 1),
+    ("data", "db"))`` at full width, against the single card: the sheet
+    build and piece queries, the audio build and raw sheet queries, the
+    search of phase 8's gallery, the CCA fit of phase 10's pairs; then the
+    dry run on four ranks. The ranks' kernel launches are added up; the
+    single-card references' are not counted."""
+    import pickle
+
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
+        topk_gallery,
+        topk_gallery_plain,
+    )
+    from audio_sheet_retrieval_tpu_torch.parallel import gallery as pg
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+    from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
+        make_fused_piece_query_spec,
+        make_fused_sheet_query,
+    )
+
+    t_phase = time.perf_counter()
+    dev, cfg, params = ctx["dev"], ctx["cfg"], ctx["params"]
+    images, specs = ctx["images"], ctx["specs"]
+    n_pieces = len(images)
+    # the single card: phase 4's gallery and counts; the sharded build's
+    # geometry, the stride grid (phase 4's gallery takes its windows at the
+    # noteheads, an arm the JAX sharded build lacks); phase 7's audio
+    # gallery
+    ref = accuracy.build_piece_gallery(params, cfg, images, device=dev)
+    ref_counts = {}
+    for name, gal in (("phase4", ctx["gallery"]), ("build", ref)):
+        query = make_fused_piece_query_spec(params, cfg, gal, n_pieces,
+                                            n_candidates=25)
+        ref_counts[name] = np.stack([
+            query(payload, scale, st).cpu().numpy()
+            for payload, scale, starts in accuracy.query_payloads(
+                cfg, specs, 1, 100, 16) for st in starts])
+    s2a = ctx["s2a_gallery"]
+    s2a_query = make_fused_sheet_query(params, cfg, s2a, n_pieces,
+                                       n_candidates=25)
+    ref_s_counts = np.stack([s2a_query(im, win.linspace_starts(
+        im.shape[1], cfg.input_shape_1[2], 100)).cpu().numpy()
+        for im in images])
+    lat1, lat2, coeffs64 = ctx["refit_pairs"]
+    launches = {name: 0 for name in read_launches()}
+    with tempfile.TemporaryDirectory() as work:
+        big = big_gallery(torch, dev)
+        np.save(os.path.join(work, "big.npy"), big)
+        q = np.random.default_rng(17).standard_normal((BIG_Q, 32)).astype(
+            np.float32)
+        np.save(os.path.join(work, "big_q.npy"), q)
+        qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+        ref_big_s, ref_big_i = (t.cpu().numpy() for t in topk_gallery(
+            torch.from_numpy(qn).to(dev),
+            torch.from_numpy(pg.host_block(big, 1, 0)).to(dev), BIG_K))
+        del big
+        with open(os.path.join(work, "gallery.pkl"), "wb") as fp:
+            pickle.dump(dict(cfg=cfg, params=params.to("cpu"), images=images,
+                             specs=specs, refit_pairs=(lat1, lat2),
+                             phase4_rows=ctx["gallery"].gallery_n.cpu()
+                             .numpy(), phase4_ids=ctx["gallery"].ids), fp)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(4, "gloo", "gallery", work)
+        ranks_s = time.perf_counter() - t0
+        outs = [dict(np.load(os.path.join(work, f"gallery_{r}.npz")))
+                for r in range(4)]
+
+    # a. axes: rank = data * 2 + db, each sub-group of two
+    for r, res in enumerate(ranks):
+        ax = res["axes"]
+        assert (ax["data"]["index"], ax["db"]["index"]) == divmod(r, 2), ax
+        assert ax["db"]["ranks"] == [r - r % 2, r - r % 2 + 1], ax
+        assert ax["data"]["ranks"] == [r % 2, r % 2 + 2], ax
+        assert ax["data"]["size"] == ax["db"]["size"] == 2, ax
+    emit("gallery", check="a. data x db mesh, four gloo ranks on one card",
+         axes=[res["axes"] for res in ranks])
+
+    # b. the sheet build: each data replica's rows are the single card's
+    replica_rows = [whole_rows(outs[d:d + 2], "sheet") for d in (0, 2)]
+    ids = outs[0]["sheet_ids"]
+    real = ids != n_pieces
+    assert all(np.array_equal(o["sheet_ids"], ids) for o in outs)
+    np.testing.assert_array_equal(ids[real], ref.ids)
+    ref_rows = ref.gallery_n.cpu().numpy()
+    rows_gap = [float(np.abs(rows[:len(ids)][real] - ref_rows).max())
+                for rows in replica_rows]
+    assert max(rows_gap) <= GALLERY_ROWS_ATOL, rows_gap
+    assert not replica_rows[0][:len(ids)][~real].any() and \
+        not replica_rows[0][len(ids):].any()
+    emit("gallery", check="b. sharded sheet build vs the single card",
+         pieces=n_pieces, pieces_a_shard=-(-n_pieces // 2),
+         rows=int(real.sum()), rows_a_shard=outs[0]["sheet_rows"].shape[0],
+         max_abs_gap=rows_gap, ids_equal=True, padding_rows_zero=True,
+         replicas_rows_max_abs_diff=float(np.abs(
+             replica_rows[0] - replica_rows[1]).max()))
+
+    # c. piece queries over phase 4's gallery (6,000 rows a shard) and over
+    # the sharded build: the single card's counts, on every rank
+    rank1 = {}
+    for name, key in (("phase4", "counts"), ("build", "build_counts")):
+        for r, o in enumerate(outs):
+            np.testing.assert_array_equal(o[key], ref_counts[name],
+                                          err_msg=f"{name}, rank {r}")
+        ranks1 = [accuracy.rank_and_margin(c, p)[0]
+                  for p, c in enumerate(outs[0][key])]
+        rank1[name] = sum(r <= 1 for r in ranks1)
+        emit("gallery", check="c. sharded piece queries vs the single card",
+             gallery="phase 4's (notehead windows, host rows)"
+             if name == "phase4" else "the sharded build (stride grid)",
+             queries=len(ranks1), counts_equal_bit_for_bit=True,
+             ranks_agree=True, rank1=rank1[name],
+             rank5=sum(r <= 5 for r in ranks1))
+    assert rank1["phase4"] >= 59, rank1
+
+    # d. the audio build and raw sheet queries: phase 7's
+    audio_rows = whole_rows(outs[:2], "audio")
+    a_ids = outs[0]["audio_ids"]
+    a_real = a_ids != n_pieces
+    np.testing.assert_array_equal(a_ids[a_real], s2a.ids)
+    audio_gap = float(np.abs(audio_rows[:len(a_ids)][a_real]
+                             - s2a.gallery_n.cpu().numpy()).max())
+    assert audio_gap <= GALLERY_ROWS_ATOL, audio_gap
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["s_counts"], ref_s_counts,
+                                      err_msg=f"rank {r}")
+    s_ranks = [int((c >= c[p]).sum()) for p, c in enumerate(ref_s_counts)]
+    emit("gallery", check="d. sharded audio build (u16) and raw sheet "
+         "queries vs phase 7", rows=int(a_real.sum()),
+         max_abs_gap=audio_gap, counts_equal_bit_for_bit=True,
+         rank1=sum(r <= 1 for r in s_ranks))
+
+    # e. phase 8's gallery searched over db: kernel 1's on the whole
+    s_gap = 0.0
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["big_i"], ref_big_i,
+                                      err_msg=f"rank {r}")
+        s_gap = max(s_gap, float(np.abs(o["big_s"] - ref_big_s).max()))
+    assert s_gap <= TOPK_ATOL, s_gap
+    emit("gallery", check="e. sharded search of 10^6 rows vs kernel 1 on "
+         "one card", rows=BIG_ROWS, q=BIG_Q, k=BIG_K, indices_equal=True,
+         scores_max_abs_err=s_gap,
+         bit_identical=all(np.array_equal(o["big_s"], ref_big_s)
+                           for o in outs))
+
+    # f. the CCA fit over data
+    coeffs_err = max(float(np.abs(o["coeffs"] - coeffs64).max())
+                     for o in outs)
+    assert coeffs_err <= REFIT_COEFFS_ATOL, coeffs_err
+    emit("gallery", check="f. CCA fit over data vs float64", pairs=len(lat1),
+         coeffs_max_abs_err_vs_float64=coeffs_err)
+
+    # g. the dry run on four ranks
+    emit("gallery", check="g. dry run, four ranks on one card",
+         **run_dryrun())
+
+    # h. the ranks' own numbers, and kernel 1 at a db shard's shape
+    for res in ranks:
+        assert res["launches"]["topk_gallery"] > 0, res
+        for name, n in res["launches"].items():
+            launches[name] += n
+    emit("gallery", check="h. per rank: four processes sharing one card "
+         "(not a scaling figure)",
+         **{key: [res[key] for res in ranks] for key in (
+             "sheet_build_s", "piece_query_phase4_p50_ms",
+             "piece_query_build_p50_ms", "audio_build_s",
+             "sheet_query_p50_ms", "big_search_s",
+             "max_memory_allocated_mb")},
+         launches_a_rank=[res["launches"]["topk_gallery"] for res in ranks],
+         ranks_seconds=ranks_s)
+    if dev.type == "cuda":
+        # beside the whole gallery's in the same window: the event time of
+        # so short a launch is mostly host time, the profiler's is not
+        whole = ctx["gallery"].gallery_n
+        g = whole[:SHARD_N].contiguous()
+        qs = torch.from_numpy(qn).to(dev)
+        check_topk(torch, qs, g, 25)
+        ctx["shard_topk"] = dict(
+            n=SHARD_N, ms=cuda_ms(lambda: topk_gallery(qs, g, 25)),
+            plain_ms=cuda_ms(lambda: topk_gallery_plain(qs, g, 25)),
+            library_ms=cuda_ms(lambda: torch.topk(qs @ g.T, 25)),
+            bound_ms=topk_bound(BIG_Q, SHARD_N, 32, 25)[0],
+            device_us=device_us(lambda: topk_gallery(qs, g, 25), "topk"),
+            whole_n=whole.shape[0],
+            whole_ms=cuda_ms(lambda: topk_gallery(qs, whole, 25)),
+            whole_device_us=device_us(lambda: topk_gallery(qs, whole, 25),
+                                      "topk"))
+        emit("gallery", check="h. kernel 1 at a db shard's shape",
+             q=BIG_Q, **ctx["shard_topk"])
+    emit("gallery", launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+RANK_SCENARIOS = {"fit": rank_gloo, "nccl_fit": rank_nccl,
+                  "gallery": rank_gallery}
 
 
 def main() -> int:
@@ -3529,7 +3882,7 @@ def main() -> int:
         for phase in (phase_s2a, phase_streaming, phase_audio,
                       phase_eval_refine, phase_train, phase_device_pool,
                       phase_precision, phase_alignment, phase_omr,
-                      phase_reports, phase_mesh):
+                      phase_reports, phase_mesh, phase_gallery):
             for name, n in phase(torch, ctx).items():
                 launches[name] += n
     rows = []
@@ -3547,6 +3900,7 @@ def main() -> int:
         "audio_sheet_retrieval_tpu/ops/dtw.py:46, the traceback "
         "audio_sheet_retrieval_tpu/ops/dtw.py:94")
     launches["dtw"] = launches["dtw_accumulate"]
+    kernel_stats["topk_gallery"]["db_shard"] = ctx["shard_topk"]
     for name, stats in kernel_stats.items():
         rows.append({"name": name, "route": "cuda",
                      "source": "audio_sheet_retrieval_tpu_torch/csrc/"
@@ -3562,6 +3916,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:     # a rank process of phase 16
+    if sys.argv[1:2] == ["--mesh-rank"]:     # a rank process of 16-17
         sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())

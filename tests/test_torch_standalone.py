@@ -80,7 +80,8 @@ def test_port_sources_are_found():
                    "models/unet.py", "omr/inference.py", "omr/detectors.py",
                    "utils/image_io.py", "retrieval/umc.py", "cli/tutorial.py",
                    "cli/umc_a2s_server.py", "cli/umc_s2a_server.py",
-                   "cli/prepare_umc_data.py"):
+                   "cli/prepare_umc_data.py", "parallel/mesh.py",
+                   "parallel/gallery.py", "parallel/dryrun.py"):
         assert os.path.join("audio_sheet_retrieval_tpu_torch",
                             *module.split("/")) in names, module
 
