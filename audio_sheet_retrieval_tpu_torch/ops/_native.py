@@ -53,6 +53,13 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # rounds, threads, out, stream
         "dtw_barrier_rounds": ([_I, _I, _P, _P], _I),
     },
+    "rans": {
+        # freqs, states, words, P, S, W, n, K, g, threads, out, stream
+        "rans_decode": ([_P] * 3 + [_I] * 7 + [_P, _P], _I),
+        # data, freqs, n, S, K, g, threads, pad_sym, w_budget, scratch,
+        # states, words, n_words, stream
+        "rans_encode": ([_P, _P] + [_I] * 7 + [_P] * 5, _I),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

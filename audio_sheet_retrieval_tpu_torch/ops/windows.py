@@ -13,8 +13,17 @@ Window starts are host arrays and are checked on the host: an out-of-range
 start raises instead of reading out of bounds on the device.
 
 Audio uploads as int16 samples or as 8-bit mu-law bytes (``mulaw_encode``
-on the host, ``mulaw_decode_device`` on the device). The JAX module's other
-wire codecs (rle, pack4, rANS) are not ported yet (ROADMAP Queue 1 #8).
+on the host, ``mulaw_decode_device`` on the device).
+
+The wires of the JAX module, encoders on the host and decodes on the
+tensor's device, output-identical to the raw upload: the lossy 4-bit
+packing (``pack_strip_4bit``), the lossless bitmap-RLE strip codings
+(``rle_bitmap_encode_strip``, the two-level ``rle_bitmap2_encode_strip``;
+their decode is one bit unpack, one cumsum and one ``values[run_of]``
+gather a level), the rANS-coded corpus strip wire
+(``rans_encode_corpus_strips``) and spectrogram wire
+(``spec_rans_encode_corpus``, u8 codes or their mod-256 time delta), whose
+decodes run the rANS decode kernel (``ops/rans.py``, ``csrc/rans.cu``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import cca_model
 from audio_sheet_retrieval_tpu_torch.models import encoder as enc
 from audio_sheet_retrieval_tpu_torch.ops import _native
+from audio_sheet_retrieval_tpu_torch.ops import rans
 from audio_sheet_retrieval_tpu_torch.ops.audio import INT16_MAX
 from audio_sheet_retrieval_tpu_torch.train.engine import (
     prepare_view1_device,
@@ -340,6 +350,196 @@ def fullconv_plane(params, strip: torch.Tensor, crop_h: int,
     return plane.to(dtype).contiguous()
 
 
+# --- strip wires -----------------------------------------------------------------
+
+
+def pack_strip_4bit(strip_u8: np.ndarray) -> np.ndarray:
+    """Pack a [H, W] uint8 sheet strip to 4 bits a pixel ([H, W/2] uint8,
+    lossy: 16 gray levels, round(v / 17)). Odd widths drop the last
+    column."""
+    s = np.asarray(strip_u8, np.uint8)
+    w2 = (s.shape[1] // 2) * 2
+    codes = (s[:, :w2].astype(np.uint16) + 8) // 17  # round(v/17)
+    codes = np.minimum(codes, 15).astype(np.uint8)
+    return (codes[:, 0::2] << 4) | codes[:, 1::2]
+
+
+def unpack_strip_4bit(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_strip_4bit`` on the tensor's device -> [H, 2 Wp]
+    uint8 values (code * 17)."""
+    hi = (packed >> 4) * 17
+    lo = (packed & 0xF) * 17
+    h, wp = packed.shape
+    return torch.stack([hi, lo], dim=2).reshape(h, 2 * wp)
+
+
+RLE_PAD_RUNS = 4096  # run counts are padded to a multiple of this
+
+
+def rle_bitmap_encode_strip(strip_u8: np.ndarray,
+                            pad_to: int = RLE_PAD_RUNS):
+    """LOSSLESS strip coding: a 1-bit-a-pixel run-start bitmap (row-major,
+    ``np.packbits`` order) plus the value of each run, padded with zero
+    runs to a multiple of ``pad_to`` -> (bitmap uint8 [ceil(N/8)],
+    values uint8 [R_pad])."""
+    flat = np.asarray(strip_u8, np.uint8).reshape(-1)
+    if flat.size == 0:
+        raise ValueError("empty strip")
+    is_start = np.empty(flat.size, np.uint8)
+    is_start[0] = 1
+    np.not_equal(flat[1:], flat[:-1], out=is_start[1:].view(bool))
+    values = flat[is_start.astype(bool)]
+    r = len(values)
+    r_pad = ((r + pad_to - 1) // pad_to) * pad_to
+    values = np.pad(values, (0, r_pad - r))
+    bitmap = np.packbits(is_start)  # big-endian bit order
+    return bitmap, values
+
+
+_BIT_SHIFTS = (7, 6, 5, 4, 3, 2, 1, 0)   # np.packbits's bit order
+
+
+def rle_bitmap_decode_device(bitmap: torch.Tensor, values: torch.Tensor,
+                             h: int, w: int) -> torch.Tensor:
+    """Inverse of ``rle_bitmap_encode_strip`` on the tensors' device ->
+    [h, w] uint8: the bits unpacked, one cumsum gives each pixel's run,
+    one gather its value."""
+    n = h * w
+    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8,
+                          device=bitmap.device)
+    bits = (bitmap[:, None] >> shifts[None, :]) & 1
+    run_of = torch.cumsum(bits.reshape(-1)[:n], 0, dtype=torch.int64) - 1
+    return values[run_of].reshape(h, w)
+
+
+def rle_bitmap2_encode_strip(strip_u8: np.ndarray,
+                             pad_to: int = RLE_PAD_RUNS):
+    """Two-level LOSSLESS strip coding: the level-1 run-start bitmap
+    (``rle_bitmap_encode_strip``) is itself bitmap-RLE coded -> (bm2 uint8
+    [ceil(N/64)], vals2 uint8 [R2_pad], values uint8 [R1_pad])."""
+    bitmap, values = rle_bitmap_encode_strip(strip_u8, pad_to)
+    bm2, vals2 = rle_bitmap_encode_strip(bitmap.reshape(1, -1), pad_to)
+    return bm2, vals2, values
+
+
+def check_block_k(block_k) -> None:
+    """``block_k`` is None or the (k1, k2) pair of positive ints that the
+    JAX package's ``rle2_block_plan`` gives. The port has one decode, the
+    plain gather: the JAX package's blocked decode is bit-identical to it
+    and exists for the TPU's serial gathers, so the pair selects nothing
+    here."""
+    if block_k is None:
+        return
+    if (not isinstance(block_k, (tuple, list)) or len(block_k) != 2
+            or not all(isinstance(k, (int, np.integer))
+                       and not isinstance(k, bool) and k > 0
+                       for k in block_k)):
+        raise ValueError(f"block_k must be None or a (k1, k2) pair of "
+                         f"positive ints, got {block_k!r}")
+
+
+def rle_bitmap2_decode_device(bm2: torch.Tensor, vals2: torch.Tensor,
+                              values: torch.Tensor, h: int, w: int,
+                              block_k=None) -> torch.Tensor:
+    """Inverse of ``rle_bitmap2_encode_strip`` on the tensors' device ->
+    [h, w] uint8: the level-1 bitmap first, then the pixels.
+    ``block_k``: see ``check_block_k``."""
+    check_block_k(block_k)
+    nb = (h * w + 7) // 8
+    bitmap = rle_bitmap_decode_device(bm2, vals2, 1, nb).reshape(-1)
+    return rle_bitmap_decode_device(bitmap, values, h, w)
+
+
+def _pad_white(strip_u8: np.ndarray, width_bucket: int) -> np.ndarray:
+    s = np.asarray(strip_u8, np.uint8)
+    wb = max(1, int(np.ceil(s.shape[1] / width_bucket))) * width_bucket
+    padded = np.full((s.shape[0], wb), 255, np.uint8)
+    padded[:, :s.shape[1]] = s
+    return padded
+
+
+def rle_bitmap2_encode_padded(strip_u8: np.ndarray,
+                              width_bucket: int = 4096):
+    """The strip padded white to a ``width_bucket`` multiple, then
+    two-level coded -> (bm2, vals2, values, (h, w_padded))."""
+    padded = _pad_white(strip_u8, width_bucket)
+    bm2, vals2, values = rle_bitmap2_encode_strip(padded)
+    return bm2, vals2, values, padded.shape
+
+
+def make_strip_embedder_rle_bitmap2(params: cca_model.ModelParams,
+                                    cfg: ModelConfig, strip_shape, *,
+                                    center_crop: Optional[int] = None,
+                                    gather_half: bool = False,
+                                    fullconv: bool = False, block_k=None,
+                                    device) -> Callable:
+    """Two-level bitmap-RLE strip embedder on ``device``: fn(bm2, vals2,
+    values, starts [N]) -> [N, dim]. The payload (host arrays or tensors)
+    uploads, the strip is decoded on the device (``strip_shape`` = (H, W)
+    static) and embedded as by ``make_strip_embedder``."""
+    cca_model.check_numerics(cfg)
+    check_block_k(block_k)
+    crop_h = center_crop or cfg.input_shape_1[1]
+    h, w = int(strip_shape[0]), int(strip_shape[1])
+    params = params.to(device)
+
+    def embed(bm2, vals2, values, starts) -> torch.Tensor:
+        strip = rle_bitmap2_decode_device(to_device(bm2, device),
+                                          to_device(vals2, device),
+                                          to_device(values, device), h, w)
+        return embed_strip_windows(params, strip, starts, cfg, crop_h,
+                                   gather_half, fullconv)
+
+    return embed
+
+
+def rans_encode_corpus_strips(strips, pad_to: int = RLE_PAD_RUNS):
+    """Entropy-coded corpus sheet wire: each strip's two-level bitmap-RLE
+    components (``rle_bitmap2_encode_strip``), padded to the corpus's
+    longest, rANS-coded per piece with per-component adaptive tables. All
+    strips share one [H, W] shape.
+
+    Returns (payload, lens, piece_bytes): payload, one (freqs [P, 256]
+    u16, states [P, S] u32, words [P, Wmax] u16) triple a component;
+    lens, the three component lengths; piece_bytes, each piece's wire bytes
+    (its real words, not the stack's padding). ``make_corpus_rans_decoder``
+    decodes it."""
+    shapes = {s.shape for s in strips}
+    if len(shapes) != 1:
+        raise ValueError(f"strips must share one shape, got {shapes}")
+    encs = [rle_bitmap2_encode_strip(s, pad_to) for s in strips]
+    lens = (encs[0][0].size,
+            max(e[1].size for e in encs),
+            max(e[2].size for e in encs))
+    stacks = (
+        [e[0] for e in encs],
+        [np.pad(e[1], (0, lens[1] - e[1].size)) for e in encs],
+        [np.pad(e[2], (0, lens[2] - e[2].size)) for e in encs],
+    )
+    enc = [rans.rans_encode_batch(c) for c in stacks]
+    payload = tuple(e[:3] for e in enc)
+    piece_bytes = [
+        int(sum(enc[k][0].shape[1] * 2 + enc[k][1].shape[1] * 4
+                + enc[k][3][p] * 2 for k in range(3)))
+        for p in range(len(strips))]
+    return payload, lens, piece_bytes
+
+
+def make_corpus_rans_decoder(lens, *, device="cuda") -> Callable:
+    """Decoder of ``rans_encode_corpus_strips`` payloads on ``device``:
+    run(payload) -> (bm2_all, vals2_all, values_all) uint8 [P, n] stacks,
+    one rANS decode a component (one kernel launch each on the card)."""
+    n0, n1, n2 = (int(x) for x in lens)
+
+    def run(payload):
+        (f0, s0, w0), (f1, s1, w1), (f2, s2, w2) = payload
+        return (rans.rans_decode_batch_device(f0, s0, w0, n0, device=device),
+                rans.rans_decode_batch_device(f1, s1, w1, n1, device=device),
+                rans.rans_decode_batch_device(f2, s2, w2, n2, device=device))
+
+    return run
+
+
 # --- spectrogram upload ---------------------------------------------------------
 
 
@@ -378,6 +578,72 @@ def spec_dequantize_device(codes: torch.Tensor, scale) -> torch.Tensor:
     # the factor in float32, as the JAX package computes it
     factor = np.float32(scale) / np.float32(maxcode)
     return wide * float(factor)
+
+
+def spec_rans_encode_corpus(specs):
+    """Entropy-coded corpus audio wire: each piece's u8 codes
+    (``spec_quantize(..., 8)``), or their mod-256 time delta where that
+    has the lower order-0 byte entropy, rANS-coded (``ops/rans.py``).
+    Lossless over the codes. All specs share one [bins, T] shape.
+
+    Returns (payload, flags, scales, shape, piece_bytes): payload (freqs
+    u16 [P, 256], states u32 [P, S], words u16 [P, Wmax]); flags uint8 [P],
+    1 = delta-coded; scales float32 [P]; shape (bins, T); piece_bytes, each
+    piece's wire bytes (real words, table, states, scale and flag).
+    ``make_corpus_spec_rans_decoder`` decodes it."""
+    shapes = {np.asarray(s).shape for s in specs}
+    if len(shapes) != 1:
+        raise ValueError(f"specs must share one shape, got {shapes}")
+    bins, T = shapes.pop()
+
+    def entropy_bits(arr):
+        c = np.bincount(arr.ravel(), minlength=256).astype(np.float64)
+        p = c[c > 0] / arr.size
+        return float(-(p * np.log2(p)).sum()) * arr.size
+
+    chosen, flags, scales = [], [], []
+    for s in specs:
+        codes, scale = spec_quantize(s, bits=8)
+        c16 = codes.astype(np.int16)
+        delta = (np.diff(c16, axis=1,
+                         prepend=np.zeros((bins, 1), np.int16))
+                 & 0xFF).astype(np.uint8)
+        use_delta = entropy_bits(delta) < entropy_bits(codes)
+        chosen.append(delta if use_delta else codes)
+        flags.append(1 if use_delta else 0)
+        scales.append(scale)
+    freqs, states, words, n_words = rans.rans_encode_batch(chosen)
+    piece_bytes = [int(freqs.shape[1] * 2 + states.shape[1] * 4
+                       + nw * 2 + 4 + 1) for nw in n_words]
+    return ((freqs, states, words), np.asarray(flags, np.uint8),
+            np.asarray(scales, np.float32), (bins, T), piece_bytes)
+
+
+def spec_undelta_device(codes: torch.Tensor,
+                        flags: torch.Tensor) -> torch.Tensor:
+    """Invert the spec-rANS wire's per-piece mod-256 time delta on the
+    tensors' device: ``codes`` [P, bins, T] u8, ``flags`` [P] (1 =
+    delta-coded). The cumsum is exact mod 256."""
+    undelta = (torch.cumsum(codes.to(torch.int64), dim=2) & 0xFF).to(
+        torch.uint8)
+    return torch.where(flags.reshape(-1, 1, 1) != 0, undelta, codes)
+
+
+def make_corpus_spec_rans_decoder(shape, *, device="cuda") -> Callable:
+    """Decoder of ``spec_rans_encode_corpus`` payloads on ``device``:
+    run(payload, flags) -> uint8 codes [P, bins, T] (one rANS decode, one
+    kernel launch on the card; delta-coded pieces undone by
+    ``spec_undelta_device``)."""
+    bins, T = (int(x) for x in shape)
+
+    def run(payload, flags):
+        f, s, w = payload
+        codes = rans.rans_decode_batch_device(f, s, w, bins * T,
+                                              device=device)
+        return spec_undelta_device(codes.reshape(-1, bins, T),
+                                   to_device(flags, codes.device))
+
+    return run
 
 
 def make_spec_embedder_q(params: cca_model.ModelParams, cfg: ModelConfig, *,

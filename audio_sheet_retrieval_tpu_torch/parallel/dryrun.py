@@ -7,8 +7,9 @@
     torchrun --standalone --nproc_per_node=N \\
         -m audio_sheet_retrieval_tpu_torch.parallel.dryrun [--data D --db M]
 
-Started by hand, it starts ``N`` gloo ranks of itself (one free local port,
-each rank's output in a file of its own, one deadline for all) and prints
+Started by hand, it starts ``N`` gloo ranks of itself (a rendezvous file
+in a directory of its own, each rank's output in a file of its own, one
+deadline for all) and prints
 rank 0's output; on the card every rank uses ``cuda:<rank % cards>``, so on
 one card the ranks share ``cuda:0`` (NCCL cannot place two ranks on one
 card). Under ``torchrun`` each process joins its group with NCCL on
@@ -21,15 +22,15 @@ data-parallel over every rank (``parallel.mesh.DataMesh``). The sections,
 each printed as ``[dryrun +<seconds>s] <section> done``: a train step; a
 gallery search sharded over ``db``; a CCA refit over ``data``; an epoch
 over a replicated device pool; an epoch over a piece-sharded pool; the
-serving matrix (the sharded sheet and audio builds, raw, and both fused
-queries; the coded builds wait for the wire codecs, ROADMAP Queue 1 #8).
+serving matrix (the sharded sheet and audio builds over the rANS wires,
+and both fused queries, the sheet query over the rle2 wire), as the JAX
+package's dry run has it.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -98,10 +99,16 @@ def spawn_ranks(argv_of_rank, world: int, logdir: str, name: str,
     return outs
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def rendezvous(directory: str) -> str:
+    """A ``file://`` init method for ``init_process_group`` in
+    ``directory`` (a fresh file the spawned ranks share). Unlike a free
+    TCP port picked ahead of the ranks, which another process may bind
+    between the pick and rank 0's listen, a file of the spawn's own
+    directory cannot collide with any other group."""
+    path = os.path.join(os.path.abspath(directory), "rendezvous")
+    if os.path.exists(path):
+        raise ValueError(f"{path} exists: one rendezvous a directory")
+    return "file://" + path
 
 
 def rank_device(device: str, rank: int) -> torch.device:
@@ -201,7 +208,7 @@ def dryrun(dmesh, hmesh, n: int) -> str:
         for x in rng2.integers(0, 580, 25):
             strip[rng2.integers(10, 140):, x:x + 4][:10] = 0
         strips.append(strip)
-    sheet = pg.build_sharded_sheet_gallery(hmesh, params, cfg, strips)
+    sheet = pg.build_sharded_sheet_gallery_coded(hmesh, params, cfg, strips)
     payload, scale = win.spec_quantize(
         (rng2.random((92, 100)) * 4).astype(np.float32), bits=16)
     counts = pg.make_sharded_piece_query(
@@ -211,13 +218,14 @@ def dryrun(dmesh, hmesh, n: int) -> str:
     specs = [(rng2.random((92, t)) * 4).astype(np.float32)
              for t in (100, 80, 120)]
     audio = pg.build_sharded_audio_gallery(hmesh, params, cfg, specs,
-                                           quantize=8)
+                                           quantize=8, coded=True)
     counts2 = pg.make_sharded_sheet_query(
         hmesh, params, cfg, audio, audio.ids, 3, n_candidates=5,
-        coding="raw")(strips[0],
-                      win.linspace_starts(600, 200, 5)).cpu().numpy()
+        strip_shape=strips[0].shape)(
+            *win.rle_bitmap2_encode_strip(strips[0]),
+            win.linspace_starts(600, 200, 5)).cpu().numpy()
     assert counts2.shape == (3,) and counts2.sum() == 5 * 5, counts2
-    mark("serving matrix (raw sharded builds, both fused queries)")
+    mark("serving matrix (coded sharded builds, both fused queries)")
     return (f"dryrun({n}) OK: loss={loss:.4f}, "
             f"device-pool loss={float(losses2[-1]):.4f}, "
             f"sharded-pool loss={float(losses3[-1]):.4f}, "
@@ -257,7 +265,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--timeout", type=float, default=900.0,
                    help="seconds the ranks may take together")
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--init", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -277,16 +285,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     data, db = layout(args.ranks, args.data, args.db)
     if args.rank is not None:                                # a rank
         run_rank("gloo", rank_device(args.device, args.rank), data, db,
-                 f"tcp://127.0.0.1:{args.port}", args.rank, args.ranks)
+                 args.init, args.rank, args.ranks)
         return 0
     rank_device(args.device, 0)      # no card: fail here, not in N ranks
-    port = free_port()
     with tempfile.TemporaryDirectory() as logdir:
+        init = rendezvous(logdir)
         outs = spawn_ranks(
             lambda r: [sys.executable, "-m", __spec__.name, "--ranks",
                        str(args.ranks), "--data", str(data), "--db",
                        str(db), "--device", args.device, "--rank", str(r),
-                       "--port", str(port)],
+                       "--init", init],
             args.ranks, logdir, "dryrun", args.timeout)
     sys.stdout.write(outs[0])
     marks = [line for line in outs[0].splitlines()

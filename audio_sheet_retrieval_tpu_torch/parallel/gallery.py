@@ -27,10 +27,13 @@ order; ``GalleryShard`` appends them the same way, so the indices are
 JAX's, bit for bit, even where a block holds fewer valid rows than ``k``
 or a NaN query scores -inf everywhere.
 
-Not ported yet (ROADMAP Queue 1 #8, the wire codecs):
-``build_sharded_sheet_gallery_coded``, ``build_sharded_audio_gallery(...,
-coded=True)`` and ``make_sharded_sheet_query(..., coding="rle_bitmap2")``
-(and its ``block_k``); those arms raise ``NotImplementedError``.
+The wire arms are the JAX module's: ``build_sharded_sheet_gallery_coded``
+(the strips as the rANS-coded two-level bitmap-RLE corpus wire, each rank
+decoding only its own pieces' payloads with the rANS decode kernel, then
+their strips and windows), ``build_sharded_audio_gallery(coded=True)``
+(the u8 spectrogram rANS wire, decoded and un-deltaed on each rank) and
+``make_sharded_sheet_query(coding="rle_bitmap2")`` (the default). The
+decodes are lossless, so rows and counts equal the raw arms'.
 """
 
 from __future__ import annotations
@@ -53,9 +56,6 @@ from audio_sheet_retrieval_tpu_torch.parallel.mesh import (
 from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
     embed_spec_excerpts,
 )
-
-WIRES = "ROADMAP Queue 1 #8 (the wire codecs)"
-
 
 # --- the sharded top-k -------------------------------------------------------
 
@@ -293,29 +293,46 @@ def make_sharded_sheet_query(mesh: HybridMesh, params, cfg: ModelConfig,
                              block_k=None) -> Callable:
     """Sheet -> audio: the mirror of ``make_sharded_piece_query`` over an
     audio-excerpt gallery sharded on ``axis`` (a ``ShardedGallery`` from
-    ``build_sharded_audio_gallery``, or host rows). The raw uint8 strip
-    uploads once; the centre crop (row ``H//2 - h//2``, clamped into the
-    strip), the window gather, 'prepare' and the view-1 embedding run on
-    every rank of the axis, then the sharded top-k and the vote.
+    ``build_sharded_audio_gallery``, or host rows). The strip uploads once
+    in its wire coding and is decoded on every rank of the axis; the centre
+    crop (row ``H//2 - h//2``, clamped into the strip), the window gather,
+    'prepare' and the view-1 embedding run there, then the sharded top-k
+    and the vote.
 
-    ``coding``: ``"raw"``, query(strip_u8 [H, W], starts) -> vote counts
-    [n_pieces] (int64, on the mesh's device). The JAX default,
-    ``"rle_bitmap2"``, and ``block_k`` wait for the wire codecs and raise
-    ``NotImplementedError``.
+    ``coding``: ``"rle_bitmap2"`` (lossless two-level bitmap-RLE; needs
+    ``strip_shape=(H, W)``; query(bm2, vals2, values, starts)) or
+    ``"raw"`` (query(strip_u8 [H, W], starts)); -> vote counts [n_pieces]
+    (int64, on the mesh's device). ``block_k``: see
+    ``ops.windows.check_block_k``.
     """
     if coding not in ("rle_bitmap2", "raw"):
         raise ValueError(f"unknown coding {coding!r}")
-    if coding == "rle_bitmap2" or block_k is not None:
-        raise NotImplementedError(
-            f"the rle_bitmap2 strip wire (and its block_k) is not ported: "
-            f"{WIRES}; pass coding='raw'")
+    if coding == "rle_bitmap2" and strip_shape is None:
+        raise ValueError("coding='rle_bitmap2' needs strip_shape=(H, W)")
+    win.check_block_k(block_k)
     shard, ids_dev, k = _prep_sharded_gallery(mesh, gallery, ids, n_pieces,
                                               n_candidates, axis, n_real)
-    embed = win.make_strip_embedder(params, cfg, device=mesh.device)
+    dev = mesh.device
+    params = params.to(dev)
+    crop_h = cfg.input_shape_1[1]
+
+    def votes(strip: torch.Tensor, starts) -> torch.Tensor:
+        if strip.dtype != torch.uint8:
+            raise TypeError(f"strip must be uint8, got {strip.dtype}")
+        codes = win.embed_strip_windows(params, strip, starts, cfg, crop_h)
+        return _votes(ids_dev, shard.search(codes, k)[1], n_pieces)
+
+    if coding == "rle_bitmap2":
+        def query(bm2, vals2, values, starts) -> torch.Tensor:
+            """(bm2, vals2, values) from ops.windows.rle_bitmap2_encode_strip
+            of the [H, W] strip."""
+            return votes(win.rle_bitmap2_decode_device(
+                win.to_device(bm2, dev), win.to_device(vals2, dev),
+                win.to_device(values, dev), *strip_shape), starts)
+        return query
 
     def query(strip_u8, starts) -> torch.Tensor:
-        return _votes(ids_dev, shard.search(embed(strip_u8, starts), k)[1],
-                      n_pieces)
+        return votes(win.to_device(strip_u8, dev), starts)
 
     return query
 
@@ -367,6 +384,22 @@ def _own_pieces(mesh: HybridMesh, axis: str, n_pieces: int) -> range:
                  (mesh.axis_index(axis) + 1) * per)
 
 
+def _build(mesh: HybridMesh, cfg: ModelConfig, mine: range, valid,
+           n_win: int, n_pieces: int, embed) -> ShardedGallery:
+    """This rank's block of a sharded build: each own piece ``p`` (the
+    ``j``-th of ``mine``) with ``nv`` valid windows gets the rows
+    ``embed(j, p, nv)`` at its offset; invalid windows are zero rows."""
+    block = torch.zeros((len(mine) * n_win, cfg.dim_latent),
+                        dtype=torch.float32, device=mesh.device)
+    for j, p in enumerate(mine):
+        nv = int(valid[p].sum())
+        if nv:
+            block[j * n_win:j * n_win + nv] = embed(j, p, nv)
+    return ShardedGallery(block, mine.start * n_win, valid.shape[0] * n_win,
+                          _overflow_ids(valid, n_pieces, n_win),
+                          n_pieces * n_win)
+
+
 def build_sharded_sheet_gallery(mesh: HybridMesh, params, cfg: ModelConfig,
                                 strips, *, stride: Optional[int] = None,
                                 center_crop: int = 160,
@@ -387,26 +420,47 @@ def build_sharded_sheet_gallery(mesh: HybridMesh, params, cfg: ModelConfig,
     stack, valid, starts, n_win, n_pieces, _, _ = _pad_strip_stack(
         mesh.shape[axis], cfg, strips, stride, mine)
     params = params.to(mesh.device)
-    block = torch.zeros((len(mine) * n_win, cfg.dim_latent),
-                        dtype=torch.float32, device=mesh.device)
-    for j, p in enumerate(mine):
-        nv = int(valid[p].sum())
-        if nv:
-            block[j * n_win:j * n_win + nv] = win.embed_strip_windows(
-                params, torch.from_numpy(stack[j]).to(mesh.device),
-                starts[:nv], cfg, center_crop)
-    return ShardedGallery(block, mine.start * n_win,
-                          valid.shape[0] * n_win,
-                          _overflow_ids(valid, n_pieces, n_win),
-                          n_pieces * n_win)
+
+    def embed(j, p, nv):
+        return win.embed_strip_windows(
+            params, torch.from_numpy(stack[j]).to(mesh.device), starts[:nv],
+            cfg, center_crop)
+
+    return _build(mesh, cfg, mine, valid, n_win, n_pieces, embed)
 
 
-def build_sharded_sheet_gallery_coded(*args, **kwargs):
-    """The sheet build over the rANS-coded strip wire: not ported."""
-    raise NotImplementedError(f"build_sharded_sheet_gallery_coded is not "
-                              f"ported: {WIRES}; the raw "
-                              f"build_sharded_sheet_gallery gives the same "
-                              f"rows")
+def build_sharded_sheet_gallery_coded(mesh: HybridMesh, params,
+                                      cfg: ModelConfig, strips, *,
+                                      stride: Optional[int] = None,
+                                      center_crop: int = 160,
+                                      axis: str = DB_AXIS) -> ShardedGallery:
+    """``build_sharded_sheet_gallery`` over the serving wire: the padded
+    strips are coded as the rANS corpus wire of their two-level bitmap-RLE
+    components (``ops.windows.rans_encode_corpus_strips``, the whole
+    padded corpus, as the JAX function codes it); each rank uploads and
+    decodes only its own pieces' payloads (one rANS decode a component,
+    the decode kernel on the card), then each strip's two RLE levels, and
+    embeds its windows. The pixels are bit-identical, so the rows equal the
+    raw build's."""
+    m = mesh.shape[axis]
+    p_pad = -(-len(strips) // m) * m
+    stack, valid, starts, n_win, n_pieces, h, w = _pad_strip_stack(
+        m, cfg, strips, stride, range(p_pad))
+    payload, lens, _ = win.rans_encode_corpus_strips(list(stack))
+    mine = _own_pieces(mesh, axis, len(strips))
+    own = slice(mine.start, mine.stop)
+    bm2, vals2, values = win.make_corpus_rans_decoder(
+        lens, device=mesh.device)(tuple(tuple(a[own] for a in comp)
+                                        for comp in payload))
+    params = params.to(mesh.device)
+
+    def embed(j, p, nv):
+        strip = win.rle_bitmap2_decode_device(bm2[j], vals2[j], values[j],
+                                              h, w)
+        return win.embed_strip_windows(params, strip, starts[:nv], cfg,
+                                       center_crop)
+
+    return _build(mesh, cfg, mine, valid, n_win, n_pieces, embed)
 
 
 def build_sharded_audio_gallery(mesh: HybridMesh, params, cfg: ModelConfig,
@@ -424,39 +478,50 @@ def build_sharded_audio_gallery(mesh: HybridMesh, params, cfg: ModelConfig,
     piece's grid-tail windows are zero rows with the overflow id. Only a
     piece's own windows are embedded (the JAX module embeds the tail
     windows too, over zero padding, where a normalised embedding is 0/0,
-    and selects them to zero). ``coded=True`` (the u8 spec-rANS wire) waits
-    for the wire codecs and raises ``NotImplementedError``."""
+    and selects them to zero). ``coded=True`` (u8 only): the pieces, padded
+    with zeros to the longest and to the shard count, ship as the
+    spectrogram rANS wire (``ops.windows.spec_rans_encode_corpus``); each
+    rank decodes and un-deltas only its own pieces. Lossless over the
+    codes, so the rows equal ``coded=False``'s."""
     if coded and quantize != 8:
         raise ValueError("coded=True is the u8 spec-rANS wire")
-    if coded:
-        raise NotImplementedError(f"coded=True is not ported: {WIRES}; "
-                                  f"coded=False gives the same rows")
     ctx = cfg.input_shape_2[2]
     stride = stride or ctx // 4
     bins = {s.shape[0] for s in specs}
     if len(bins) != 1:
         raise ValueError(f"specs must share the bin count, got {bins}")
-    starts = win.stride_starts(max(s.shape[1] for s in specs), ctx, stride)
+    T = max(s.shape[1] for s in specs)
+    starts = win.stride_starts(T, ctx, stride)
     n_win, n_pieces = len(starts), len(specs)
     mine = _own_pieces(mesh, axis, n_pieces)
+    p_pad = len(mine) * mesh.shape[axis]
     params = params.to(mesh.device)
-    block = torch.zeros((len(mine) * n_win, cfg.dim_latent),
-                        dtype=torch.float32, device=mesh.device)
-    valid = np.zeros((len(mine) * mesh.shape[axis], n_win), bool)
+    valid = np.zeros((p_pad, n_win), bool)
     for i, s in enumerate(specs):
         valid[i, :len(win.stride_starts(s.shape[1], ctx, stride))] = True
-    for j, p in enumerate(mine):
-        nv = int(valid[p].sum())
-        if nv:
-            payload, scale = win.spec_quantize(specs[p], bits=quantize)
-            spec = win.spec_dequantize_device(
-                win.to_device(payload, mesh.device), scale)
-            block[j * n_win:j * n_win + nv] = win.embed_spec_windows(
-                params, cfg, spec, starts[:nv])
-    return ShardedGallery(block, mine.start * n_win,
-                          valid.shape[0] * n_win,
-                          _overflow_ids(valid, n_pieces, n_win),
-                          n_pieces * n_win)
+    if coded:
+        stack = np.zeros((p_pad, bins.pop(), T), np.float32)
+        for i, s in enumerate(specs):
+            stack[i, :, :s.shape[1]] = s
+        payload, flags, scales, shape, _ = win.spec_rans_encode_corpus(
+            list(stack))
+        own = slice(mine.start, mine.stop)
+        codes = win.make_corpus_spec_rans_decoder(
+            shape, device=mesh.device)(tuple(a[own] for a in payload),
+                                       flags[own])
+
+        def payload_of(j, p):
+            return codes[j], scales[p]
+    else:
+        def payload_of(j, p):
+            c, scale = win.spec_quantize(specs[p], bits=quantize)
+            return win.to_device(c, mesh.device), scale
+
+    def embed(j, p, nv):
+        spec = win.spec_dequantize_device(*payload_of(j, p))
+        return win.embed_spec_windows(params, cfg, spec, starts[:nv])
+
+    return _build(mesh, cfg, mine, valid, n_win, n_pieces, embed)
 
 
 # --- the CCA fit over sample shards ------------------------------------------

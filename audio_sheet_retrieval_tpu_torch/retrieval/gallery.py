@@ -1,7 +1,7 @@
 """Device-resident embedding gallery with top-k search, and the fused
 piece-ID queries: raw audio or a spectrogram against a sheet gallery
-(audio -> sheet), a raw sheet strip against an audio gallery (sheet ->
-audio).
+(audio -> sheet), a sheet strip in one of four wire codings against an
+audio gallery (sheet -> audio).
 
 The reference's retrieval hot path is a per-query scipy ``cdist`` against
 the whole snippet-code database on the host (reference:audio_sheet_server.py:
@@ -28,12 +28,16 @@ from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import cca_model
 from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 from audio_sheet_retrieval_tpu_torch.ops.windows import (
+    check_block_k,
     embed_spec_windows,
+    embed_strip_windows,
     make_audio_embedder,
     make_audio_embedder_mulaw,
-    make_strip_embedder,
+    rle_bitmap2_decode_device,
+    rle_bitmap_decode_device,
     spec_dequantize_device,
     to_device,
+    unpack_strip_4bit,
 )
 
 
@@ -153,23 +157,66 @@ def make_fused_piece_query_spec(params: cca_model.ModelParams,
 
 def make_fused_sheet_query(params: cca_model.ModelParams, cfg: ModelConfig,
                            gallery: DeviceGallery, n_pieces: int, *,
-                           n_candidates: int = 25) -> Callable:
+                           n_candidates: int = 25, pack4: bool = True,
+                           coding: Optional[str] = None, strip_shape=None,
+                           block_k=None) -> Callable:
     """Unrolled sheet strip -> per-performance vote counts, all on the
     gallery's device (reference detect_performance, audio_sheet_server.py:
-    255-300): the raw uint8 strip uploads once, then the vertical centre
-    crop (row H//2 - h//2, clamped into the strip), window gather,
-    'prepare', view-1 embedding, audio-gallery top-k and vote histogram.
+    255-300): the strip uploads once in its wire coding and is decoded
+    there, then the vertical centre crop (row H//2 - h//2, clamped into
+    the strip), window gather, 'prepare', view-1 embedding, audio-gallery
+    top-k and vote histogram.
 
-    The JAX version's compressed wires (rle2, rle, pack4) are not ported
-    (ROADMAP Queue 1 #8); this is its ``coding="raw"`` arm.
-
-    query(strip_u8 [H, W], starts [N] in strip pixels) -> vote counts
-    [n_pieces] (int64, on the device).
+    ``coding`` (the JAX function's four arms): ``"rle_bitmap2"``
+    (lossless two-level bitmap-RLE, query(bm2, vals2, values, starts)) and
+    ``"rle_bitmap"`` (lossless, query(bitmap, values, starts)) need the
+    static ``strip_shape=(H, W)``; ``"pack4"`` (lossy 4-bit, query(packed
+    [H, W/2], starts)) and ``"raw"`` (query(strip_u8 [H, W], starts)).
+    ``coding=None`` takes ``"pack4"`` if ``pack4`` else ``"raw"``, as the
+    JAX function does. ``block_k``: see ``ops.windows.check_block_k``.
+    Starts are in strip pixels (unpacked); counts are [n_pieces] int64 on
+    the device.
     """
+    if coding is None:
+        coding = "pack4" if pack4 else "raw"
+    if coding not in ("rle_bitmap2", "rle_bitmap", "pack4", "raw"):
+        raise ValueError(f"unknown coding {coding!r}")
+    if coding.startswith("rle_bitmap") and strip_shape is None:
+        raise ValueError(f"coding={coding!r} needs strip_shape=(H, W)")
+    check_block_k(block_k)
     k = min(n_candidates, gallery.n)
-    embed = make_strip_embedder(params, cfg, device=gallery.device)
+    dev = gallery.device
+    params = params.to(dev)
+    crop_h = cfg.input_shape_1[1]
 
-    def query(strip_u8, starts) -> torch.Tensor:
-        return _vote_counts(gallery, embed(strip_u8, starts), k, n_pieces)
+    def votes(strip: torch.Tensor, starts) -> torch.Tensor:
+        if strip.dtype != torch.uint8:
+            raise TypeError(f"strip must be uint8, got {strip.dtype}")
+        codes = embed_strip_windows(params, strip, starts, cfg, crop_h)
+        return _vote_counts(gallery, codes, k, n_pieces)
+
+    if coding == "rle_bitmap2":
+        def query(bm2, vals2, values, starts) -> torch.Tensor:
+            """(bm2, vals2, values) from ops.windows.rle_bitmap2_encode_strip
+            of the [H, W] strip."""
+            return votes(rle_bitmap2_decode_device(
+                to_device(bm2, dev), to_device(vals2, dev),
+                to_device(values, dev), *strip_shape), starts)
+        return query
+
+    if coding == "rle_bitmap":
+        def query(bitmap, values, starts) -> torch.Tensor:
+            """(bitmap, values) from ops.windows.rle_bitmap_encode_strip of
+            the [H, W] strip."""
+            return votes(rle_bitmap_decode_device(
+                to_device(bitmap, dev), to_device(values, dev),
+                *strip_shape), starts)
+        return query
+
+    unpack = unpack_strip_4bit if coding == "pack4" else (lambda s: s)
+
+    def query(strip, starts) -> torch.Tensor:
+        """strip: [H, W/2] packed uint8 (pack4) or [H, W] uint8."""
+        return votes(unpack(to_device(strip, dev)), starts)
 
     return query

@@ -7,9 +7,9 @@ package's ``retrieval/server.py``, both directions:
     ``initialize_sheet_db_from_imges`` / ``initialize_audio_db_from_specs``
     slide windows (stride context//4) over raw unrolled strips and full
     spectrograms (:403-494); the ``*_device`` builds do the same on the
-    device from the raw uint8 strip (``fullconv`` = the strip-level first
-    block, through the feature-window gather kernel) or the u16-quantized
-    spectrogram, and keep the codes there;
+    device from the strip's two-level bitmap-RLE wire (``fullconv`` = the
+    strip-level first block, through the feature-window gather kernel) or
+    the u16-quantized spectrogram, and keep the codes there;
   * pickle save/load of both DBs, in the JAX package's format (numpy
     codes), so a DB written by one package loads in the other;
   * ``detect_score``: 100 equally spaced excerpts -> embed -> per-excerpt
@@ -17,7 +17,8 @@ package's ``retrieval/server.py``, both directions:
     ``detect_score_from_spec`` / ``detect_score_from_audio`` do it on the
     device from an uploaded spectrogram / mu-law waveform;
   * ``detect_performance``: the sheet-query mirror (:255-300), and
-    ``detect_performance_from_sheet`` on the device from the raw strip;
+    ``detect_performance_from_sheet`` on the device from the strip's
+    two-level bitmap-RLE wire;
   * ``run``: the streaming frame loop with a sliding 42-frame window and an
     energy-based music gate (:83-211, dashboard optional), and
     ``run_device_stream``, the same votes with the window kept on the
@@ -175,8 +176,7 @@ class AudioSheetServer:
         self._fused_spec_query_key = None
         self._fused_query = None
         self._fused_query_key = None
-        self._fused_sheet_query = None
-        self._fused_sheet_query_key = None
+        self._fused_sheet_queries: Dict[tuple, Callable] = {}
         self._stream_cache = None
         self._processor: Optional[AudioProcessor] = None
 
@@ -253,30 +253,37 @@ class AudioSheetServer:
 
     def initialize_sheet_db_from_imges_device(
             self, pieces: Sequence[str], scores: Sequence[np.ndarray],
-            *, fullconv: bool = False) -> None:
-        """Device sheet DB build: each raw uint8 strip uploads once, the
-        sliding windows (stride context//4) and the embedding run on the
-        device, and the codes stay there (downloaded only by
-        ``save_sheet_db_file``). ``fullconv``: the strip-level first conv
-        block with the feature-window gather kernel; its embeddings are the
-        JAX package's fullconv ones, not the per-window build's (see
-        ``ops.windows._strip_embed_core_fullconv``)."""
+            *, width_bucket: int = 4096, fullconv: bool = False) -> None:
+        """Device sheet DB build: each strip, padded white to a
+        ``width_bucket`` multiple, uploads once as the lossless two-level
+        bitmap-RLE wire (``ops.windows.rle_bitmap2_encode_padded``) and is
+        decoded on the device; the sliding windows (stride context//4 over
+        the unpadded width) and the embedding run there, and the codes stay
+        there (downloaded only by ``save_sheet_db_file``). ``fullconv``: the
+        strip-level first conv block with the feature-window gather kernel,
+        over the padded strip as in the JAX package (its last windows see
+        the white pad); its embeddings are the JAX package's fullconv ones,
+        not the per-window build's (``ops.windows._strip_embed_core_fullconv``)."""
         print("Initializing sheet music db (device-resident) ...")
         wrapper = self.embed_network
         h, w = self.sheet_shape
-        embed = win.make_strip_embedder(wrapper.params, wrapper.cfg,
-                                        center_crop=h, fullconv=fullconv,
-                                        device=self.device)
         codes, ids = [], []
         self.id_to_piece = {}
         # device builds keep no raw snippets; drop a stale host-built set
         # so save_sheet_db_file cannot pickle mismatched snippets
         self.sheet_snippets = None
+        embedders = {}
         for piece_idx, piece in enumerate(pieces):
             self.id_to_piece[piece_idx] = piece
             image = np.asarray(scores[piece_idx], np.uint8)
             starts = np.arange(0, image.shape[1] - w, w // 4, dtype=np.int32)
-            codes.append(embed(image, starts))
+            bm2, vals2, values, shape = win.rle_bitmap2_encode_padded(
+                image, width_bucket)
+            if shape not in embedders:
+                embedders[shape] = win.make_strip_embedder_rle_bitmap2(
+                    wrapper.params, wrapper.cfg, shape, center_crop=h,
+                    fullconv=fullconv, device=self.device)
+            codes.append(embedders[shape](bm2, vals2, values, starts))
             ids.append(np.full(len(starts), piece_idx, np.int64))
         self.sheet_snippet_codes = torch.cat(codes)
         self.sheet_snippet_ids = np.concatenate(ids)
@@ -498,22 +505,27 @@ class AudioSheetServer:
                                       top_k: int = 1, n_candidates: int = 1,
                                       verbose: bool = False,
                                       n_samples: int = 100):
-        """``detect_performance`` on the device: the raw uint8 strip uploads
-        once, and the centre crop, windows, view-1 embedding, audio-gallery
-        top-k and vote histogram run there
+        """``detect_performance`` on the device: the strip, padded white to
+        a 4096-px width multiple, uploads as the lossless two-level
+        bitmap-RLE wire, and the decode, centre crop, windows, view-1
+        embedding, audio-gallery top-k and vote histogram run there
         (``gallery.make_fused_sheet_query``); the host downloads one
         [n_performances] count vector."""
-        n_perf = max(self.id_to_perform) + 1
-        key = (id(self._audio_gallery), n_candidates, n_perf)
-        if self._fused_sheet_query_key != key:
-            self._fused_sheet_query = make_fused_sheet_query(
-                self.embed_network.params, self.embed_network.cfg,
-                self._audio_gallery, n_perf, n_candidates=n_candidates)
-            self._fused_sheet_query_key = key
         strip = np.asarray(sheet, np.uint8)
+        bm2, vals2, values, shape = win.rle_bitmap2_encode_padded(strip)
+        n_perf = max(self.id_to_perform) + 1
+        key = (id(self._audio_gallery), n_candidates, n_perf, shape)
+        cache = self._fused_sheet_queries
+        if key not in cache:
+            if len(cache) >= 8:  # one query a strip geometry, at most 8
+                cache.pop(next(iter(cache)))
+            cache[key] = make_fused_sheet_query(
+                self.embed_network.params, self.embed_network.cfg,
+                self._audio_gallery, n_perf, n_candidates=n_candidates,
+                coding="rle_bitmap2", strip_shape=shape)
         starts = linspace_starts(strip.shape[1], self.sheet_shape[1],
                                  n_samples)
-        counts = self._fused_sheet_query(strip, starts).cpu().numpy()
+        counts = cache[key](bm2, vals2, values, starts).cpu().numpy()
         return _fused_result(counts, top_k, self.id_to_perform, verbose)
 
     # -- streaming ---------------------------------------------------------------

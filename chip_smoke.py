@@ -7,7 +7,7 @@ exits non-zero):
 
 1. device: the card's name and power limit; TF32 off for convolutions and
    matmuls.
-2. build: the three CUDA sources compiled from
+2. build: the four CUDA sources compiled from
    ``audio_sheet_retrieval_tpu_torch/csrc`` with nvcc, one process each,
    all started together (ptxas register / shared-memory report).
 3. kernels: each kernel against its plain PyTorch version on the card
@@ -42,7 +42,8 @@ exits non-zero):
    audio, 8 pieces), each with and without ``--fused``: the same ranks.
 7. s2a: sheet -> audio on the 60-piece corpus: the audio DB built on the
    card (u16 upload), each strip queried with
-   ``detect_performance_from_sheet``; ranks equal to a replay through the
+   ``detect_performance_from_sheet`` (the strip up as the rle2 wire); ranks
+   equal to a replay through the raw strips and the
    plain top-k, rank<=1 at least the JAX package's own count less one.
 8. streaming: ``run_device_stream`` over 400 frames of three pieces against
    phase 4's gallery, at chunk 8 and per frame; vote histograms equal to
@@ -146,7 +147,9 @@ exits non-zero):
 15. OMR (no kernel of its own: the JAX package reaches no ``pallas_call``
    there): the vendored tutorial page through the three vendored U-Nets
    (system, bar, note) on the card, against the JAX package's results in
-   ``tests/golden/omr_tutorial_page.npz`` (``scripts/jax_omr_golden.py``).
+   ``tests/golden/omr_tutorial_page.npz`` (``scripts/jax_omr_golden.py``),
+   the page and map over the rANS wires (the defaults; both rANS kernels
+   must launch in c-d).
    a. float32 ``highest``: systems, bars with and without systems, and
    noteheads equal to JAX's; the system map's u16 codes within 1 of JAX's,
    and no more of them off a plain float64 run of the same U-Net and
@@ -203,6 +206,11 @@ exits non-zero):
    notehead-centred windows). d. ``build_sharded_audio_gallery``
    (u16) and the raw ``make_sharded_sheet_query`` of the 60 strips: rows
    within 1e-5 of phase 7's audio gallery, its counts bit for bit. e.
+   d2. the wires in the ranks: ``build_sharded_sheet_gallery_coded`` and
+   ``build_sharded_audio_gallery(coded=True, quantize=8)`` within 1e-5 of
+   the raw builds (whether bit-identical is reported), the sheet query
+   over the rle2 wire (its default) with the raw counts bit for bit, the
+   rANS decode kernel launched on every rank. e.
    ``sharded_gallery_search`` of phase 8's gallery at Q = 100, k = 25:
    the indices of kernel 1 over the whole gallery on one card, scores
    within TOPK_ATOL, whether bit-identical. f. ``sharded_cca_fit`` over
@@ -216,22 +224,51 @@ exits non-zero):
    scenario name, ``parallel.dryrun.spawn_ranks`` underneath: a log file
    a rank, one deadline).
 
+18. the wire codecs. a. both rANS kernels (``csrc/rans.cu``) against
+   their plain versions on the card, bit for bit, and against the native
+   host decoder / the numpy encoder: the decode at phase 4's sheet corpus
+   (60 strips padded white to 8,192 px, the three rle2 components; unequal
+   word counts), its spectrogram corpus (60 x 92 x 1,720 u8 codes,
+   S = 256) and the tutorial page's plane segments (S = 2,048), n < S,
+   constant rows (no words) and a one-symbol table of frequency 4,096; the
+   encode at the tutorial page's system map plane (its static table and
+   budget), K S < w_budget, an overflowing budget and the 4,096 table;
+   event times and back-to-back (queued) times beside the plain versions'
+   and the bound (the bytes at 3.35 TB/s or the steps times one barrier
+   round, the larger),
+   the host encode times (numpy and native). b. the sheet wire: each
+   strip through the rle2 embedder against the raw one on the padded
+   strip, exact and fullconv, bit for bit; the corpus decode's strips; the
+   sheet query's counts over the rle2 wire equal to raw on phase 7's
+   gallery; the server's build wall over the rle2 wire against the raw
+   upload; bytes a strip. c. the spectrogram wire: the corpus decode
+   equal to ``spec_quantize(..., 8)`` for every piece, the delta flags,
+   bytes a spectrogram. d. OMR: page_wire x map_wire in {raw, rans}^2 on
+   the tutorial page, the three nets with their own map tables, map_bits
+   8 and 16: the maps bit-identical; a tiny budget takes the overflow
+   path and equals raw; each wire pair's page time; bytes a page.
+
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
 phases 11-16 (``fit``, ``run_eval``, the CLI, the resume runs, each build
 and query set of phase 13, each ``audio2sheet_align`` run of phase 14,
 each command line of phase 15, the traced query and each rank process of
-phases 16-17, whose counts its ranks report); each of phases 4-13, 15
-and 16 must launch the top-k kernel, phase 17 on every rank, and phase
-14 both DTW kernels once for each piece it aligns by ``pydtw``; the
-single-card references of phase 17 are not counted. The ``kernels`` line
-reports the sum over phases 4-17 (kernel 2's bf16 launches of phase
+phases 16-17, whose counts its ranks report) and zeroed before phase
+18b and read after 18d; each of phases 4-13, 15 and 16 must launch the
+top-k kernel, phase 17 on every rank, and phase 14 both DTW kernels once
+for each piece it aligns by ``pydtw``; phases 15 and 18b-d both rANS
+kernels, phase 17 the decode on every rank; the single-card references
+of phase 17 and the checks of 18a are not counted. The ``kernels`` line
+reports the sum over phases 4-18 (kernel 2's bf16 launches of phase
 13 among them), beside each kernel's times at the main path's shape
 (top-k: Q = 100, N = 12,000, k = 25, and at a db shard's N = 6,000
 under ``db_shard``; gather: one 6040-px strip, float32,
 its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
 after the transpose, the accumulation's launches as ``launches`` and the
-traceback's as ``traceback_launches``). The last line is ``{"ok": true,
+traceback's as ``traceback_launches``; the rANS decode: the tutorial
+page's 4 segments of 246,534 B at S = 2,048, its other shapes under
+``shapes``; the encode: the page's system map plane). The last line is
+``{"ok": true,
 "device": {...}}``.
 """
 
@@ -750,7 +787,7 @@ def plain_fullconv_codes(torch, params, cfg, images, coords):
 
 
 def zero_launches():
-    from audio_sheet_retrieval_tpu_torch.ops import dtw
+    from audio_sheet_retrieval_tpu_torch.ops import dtw, rans
     from audio_sheet_retrieval_tpu_torch.ops import windows as win
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 
@@ -758,17 +795,21 @@ def zero_launches():
     win.gather_feature_windows.launches = 0
     dtw.dtw_accumulate.launches = 0
     dtw.dtw_traceback.launches = 0
+    rans.rans_decode_kernel.launches = 0
+    rans.rans_encode_kernel.launches = 0
 
 
 def read_launches() -> dict:
-    from audio_sheet_retrieval_tpu_torch.ops import dtw
+    from audio_sheet_retrieval_tpu_torch.ops import dtw, rans
     from audio_sheet_retrieval_tpu_torch.ops import windows as win
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 
     return {"topk_gallery": topk_gallery.launches,
             "gather_feature_windows": win.gather_feature_windows.launches,
             "dtw_accumulate": dtw.dtw_accumulate.launches,
-            "dtw_traceback": dtw.dtw_traceback.launches}
+            "dtw_traceback": dtw.dtw_traceback.launches,
+            "rans_decode": rans.rans_decode_kernel.launches,
+            "rans_encode": rans.rans_encode_kernel.launches}
 
 
 def report_params(ctx) -> str:
@@ -3021,6 +3062,9 @@ def phase_omr(torch, ctx):
             assert run["yaml_read_back"] == run["ranks"], (key, run)
         assert n_resized == 2 and all(prepared), (n_resized, prepared)
     assert launches["topk_gallery"] > 0, "the UMC servers ran no top-k"
+    # the page and map wires of the tutorial's and the UMC servers' nets
+    assert launches["rans_decode"] > 0 and launches["rans_encode"] > 0, \
+        "phase 15 ran no rANS kernel"
 
     # e. times on the card, at 15 tiles a page
     tree = nets["system"].params.to_numpy()
@@ -3390,18 +3434,17 @@ def rank_nccl(torch, mesh, work) -> dict:
 
 def mesh_rank_main(argv) -> int:
     """A rank process of phases 16-17 (``chip_smoke.py --mesh-rank RANK
-    WORLD PORT BACKEND SCENARIO WORKDIR``): joins the group on card 0,
-    runs its scenario, prints its result as the last line."""
+    WORLD INIT_METHOD BACKEND SCENARIO WORKDIR``): joins the group on card
+    0, runs its scenario, prints its result as the last line."""
     import torch
     import torch.distributed as dist
 
     from audio_sheet_retrieval_tpu_torch.models import encoder
     from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm
 
-    rank, world, port, backend, scenario, work = argv
+    rank, world, init, backend, scenario, work = argv
     encoder.pin_full_f32()
-    mesh = pm.make_mesh(backend, device=RANK_DEVICE,
-                        init_method=f"tcp://127.0.0.1:{port}",
+    mesh = pm.make_mesh(backend, device=RANK_DEVICE, init_method=init,
                         rank=int(rank), world_size=int(world))
     try:
         res = RANK_SCENARIOS[scenario](torch, mesh, work)
@@ -3414,13 +3457,14 @@ def mesh_rank_main(argv) -> int:
 def spawn_ranks(world: int, backend: str, scenario: str, work: str) -> list:
     """Start ``world`` rank processes of this script on card 0 running
     ``scenario`` and wait for them (``parallel.dryrun.spawn_ranks``: a log
-    file a rank, one deadline) -> each rank's result."""
+    file a rank, one deadline; a rendezvous file in ``work``) -> each
+    rank's result."""
     from audio_sheet_retrieval_tpu_torch.parallel import dryrun
 
-    port = str(dryrun.free_port())
+    init = dryrun.rendezvous(work)
     outs = dryrun.spawn_ranks(
         lambda r: [sys.executable, os.path.abspath(__file__), "--mesh-rank",
-                   str(r), str(world), port, backend, scenario, work],
+                   str(r), str(world), init, backend, scenario, work],
         world, work, f"{scenario}_{backend}", MESH_TIMEOUT)
     return [json.loads(out.strip().splitlines()[-1])["result"]
             for out in outs]
@@ -3611,16 +3655,42 @@ def rank_gallery(torch, mesh, work) -> dict:
                                            quantize=16)
     sync(torch, dev)
     res["audio_build_s"] = time.perf_counter() - t0
+    # the sheet queries over the rle2 wire (the default coding), and raw
     squery = pg.make_sharded_sheet_query(hmesh, params, cfg, audio,
                                          audio.ids, n_pieces,
                                          n_candidates=25, coding="raw")
-    s_counts, lat = [], []
+    rqueries = {}
+    s_counts, r_counts, lat, r_lat = [], [], [], []
     for im in images:
+        starts = win.linspace_starts(im.shape[1], cfg.input_shape_1[2], 100)
         t0 = time.perf_counter()
-        s_counts.append(squery(im, win.linspace_starts(
-            im.shape[1], cfg.input_shape_1[2], 100)).cpu().numpy())
+        s_counts.append(squery(im, starts).cpu().numpy())
         lat.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        bm2, vals2, values, shape = win.rle_bitmap2_encode_padded(im)
+        if shape not in rqueries:
+            rqueries[shape] = pg.make_sharded_sheet_query(
+                hmesh, params, cfg, audio, audio.ids, n_pieces,
+                n_candidates=25, strip_shape=shape)
+        r_counts.append(rqueries[shape](bm2, vals2, values, starts)
+                        .cpu().numpy())
+        r_lat.append(time.perf_counter() - t0)
     res["sheet_query_p50_ms"] = float(np.percentile(lat, 50) * 1000)
+    res["sheet_query_rle2_p50_ms"] = float(np.percentile(r_lat, 50) * 1000)
+    # the coded builds: the sheet over the rANS corpus wire, the audio
+    # (u8) over the spectrogram rANS wire, beside the u8 raw build
+    t0 = time.perf_counter()
+    sheet_c = pg.build_sharded_sheet_gallery_coded(hmesh, params, cfg,
+                                                   images)
+    sync(torch, dev)
+    res["sheet_build_coded_s"] = time.perf_counter() - t0
+    audio8 = pg.build_sharded_audio_gallery(hmesh, params, cfg, specs,
+                                            quantize=8)
+    t0 = time.perf_counter()
+    audio8c = pg.build_sharded_audio_gallery(hmesh, params, cfg, specs,
+                                             quantize=8, coded=True)
+    sync(torch, dev)
+    res["audio_build_coded_s"] = time.perf_counter() - t0
     big = np.load(os.path.join(work, "big.npy"), mmap_mode="r")
     t0 = time.perf_counter()
     big_s, big_i = pg.sharded_gallery_search(
@@ -3639,7 +3709,10 @@ def rank_gallery(torch, mesh, work) -> dict:
              audio_total=audio.total, audio_ids=audio.ids,
              counts=np.stack(counts["phase4"]),
              build_counts=np.stack(counts["build"]),
-             s_counts=np.stack(s_counts),
+             s_counts=np.stack(s_counts), r_counts=np.stack(r_counts),
+             sheetc_rows=sheet_c.rows.cpu().numpy(), sheetc_ids=sheet_c.ids,
+             audio8_rows=audio8.rows.cpu().numpy(),
+             audio8c_rows=audio8c.rows.cpu().numpy(),
              big_s=big_s, big_i=big_i, coeffs=fit.coeffs.cpu().numpy())
     return res
 
@@ -3714,7 +3787,7 @@ def phase_gallery(torch, ctx):
                 cfg, specs, 1, 100, 16) for st in starts])
     s2a = ctx["s2a_gallery"]
     s2a_query = make_fused_sheet_query(params, cfg, s2a, n_pieces,
-                                       n_candidates=25)
+                                       n_candidates=25, coding="raw")
     ref_s_counts = np.stack([s2a_query(im, win.linspace_starts(
         im.shape[1], cfg.input_shape_1[2], 100)).cpu().numpy()
         for im in images])
@@ -3806,6 +3879,25 @@ def phase_gallery(torch, ctx):
          max_abs_gap=audio_gap, counts_equal_bit_for_bit=True,
          rank1=sum(r <= 1 for r in s_ranks))
 
+    # d2. the wires in the ranks: the coded builds' rows are the raw
+    # builds' (the decodes are exact; one encoder, the same windows), the
+    # rle2 sheet queries count as the raw ones
+    wire_gap = {}
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["sheetc_ids"], o["sheet_ids"])
+        np.testing.assert_array_equal(o["r_counts"], ref_s_counts,
+                                      err_msg=f"rle2, rank {r}")
+        for coded, raw in (("sheetc", "sheet"), ("audio8c", "audio8")):
+            gap = float(np.abs(o[coded + "_rows"] - o[raw + "_rows"]).max())
+            wire_gap.setdefault(coded, []).append(gap)
+    assert max(max(g) for g in wire_gap.values()) <= GALLERY_ROWS_ATOL, \
+        wire_gap
+    emit("gallery", check="d2. the wires on four ranks: coded builds vs "
+         "raw, rle2 sheet queries vs raw", max_abs_gap=wire_gap,
+         bit_identical={k: all(x == 0.0 for x in g)
+                        for k, g in wire_gap.items()},
+         rle2_counts_equal_bit_for_bit=True)
+
     # e. phase 8's gallery searched over db: kernel 1's on the whole
     s_gap = 0.0
     for r, o in enumerate(outs):
@@ -3833,6 +3925,7 @@ def phase_gallery(torch, ctx):
     # h. the ranks' own numbers, and kernel 1 at a db shard's shape
     for res in ranks:
         assert res["launches"]["topk_gallery"] > 0, res
+        assert res["launches"]["rans_decode"] > 0, res   # coded builds
         for name, n in res["launches"].items():
             launches[name] += n
     emit("gallery", check="h. per rank: four processes sharing one card "
@@ -3840,7 +3933,8 @@ def phase_gallery(torch, ctx):
          **{key: [res[key] for res in ranks] for key in (
              "sheet_build_s", "piece_query_phase4_p50_ms",
              "piece_query_build_p50_ms", "audio_build_s",
-             "sheet_query_p50_ms", "big_search_s",
+             "sheet_query_p50_ms", "sheet_query_rle2_p50_ms",
+             "sheet_build_coded_s", "audio_build_coded_s", "big_search_s",
              "max_memory_allocated_mb")},
          launches_a_rank=[res["launches"]["topk_gallery"] for res in ranks],
          ranks_seconds=ranks_s)
@@ -3868,6 +3962,460 @@ def phase_gallery(torch, ctx):
     return launches
 
 
+# --- phase 18: the wires -----------------------------------------------------
+
+WIRE_BUCKET = 4096        # the server's strip width bucket
+WIRE_PLAIN_ITERS = 3      # the plain decode / encode loops are slow
+
+
+BARRIER_ROUNDS = 10_000   # rounds a barrier measurement times (the launch's
+                          # own microseconds spread over them)
+
+
+def rans_bound(torch, nbytes: float, steps: int, threads: int):
+    """-> (bound ms, "bytes" or "operations", bytes ms, barrier floor ms,
+    one barrier round ns) of a rANS kernel: its bytes (each input read
+    once, each output written once) at the memory rate against its
+    ``steps`` dependent steps, each at least one CTA-wide barrier round of
+    ``threads`` threads (``dtw_barrier_rounds``, the DTW row's floor)."""
+    from audio_sheet_retrieval_tpu_torch.ops import _native
+
+    lib = _native.load("dtw")
+    scratch = torch.empty(threads, dtype=torch.int32, device="cuda")
+    round_ms = cuda_ms(lambda: _native.check(lib.dtw_barrier_rounds(
+        BARRIER_ROUNDS, threads, scratch.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "barrier"),
+        iters=10) / BARRIER_ROUNDS
+    bytes_ms = nbytes / card_peaks()["hbm_bytes_per_s"] * 1e3
+    floor_ms = round_ms * steps
+    return (max(bytes_ms, floor_ms),
+            "bytes" if bytes_ms >= floor_ms else "operations",
+            bytes_ms, floor_ms, round_ms * 1e6)
+
+
+def check_decode_kernel(torch, name, freqs, states, words, n,
+                        want=None, time_it=False) -> dict:
+    """18a: the decode kernel on ``(freqs, states, words)`` against its
+    plain version and the native host decoder, bit for bit (and against
+    ``want``, the coded rows, where given); its times at the path's
+    shapes."""
+    from audio_sheet_retrieval_tpu_torch.ops import rans
+
+    dev = torch.device("cuda")
+    freqs, states, words = (np.asarray(a) for a in (freqs, states, words))
+    f = rans._bits(freqs, torch.int16, dev)
+    s = rans._bits(states, torch.int32, dev)
+    w = rans._bits(words if words.shape[1] else np.zeros(
+        (states.shape[0], 1), np.uint16), torch.int16, dev)
+    got = rans.rans_decode_kernel(f, s, w, n)
+    plain = rans.rans_decode_batch_plain(rans._wide(f), rans._wide(s),
+                                         rans._wide(w), n)
+    assert torch.equal(got, plain), f"18a decode {name}: kernel != plain"
+    host = np.stack([rans.rans_decode_host(freqs[p], states[p], words[p], n)
+                     for p in range(states.shape[0])])
+    got_h = got.cpu().numpy()
+    assert np.array_equal(got_h, host), f"18a decode {name}: != native host"
+    if want is not None:
+        assert np.array_equal(got_h, want), f"18a decode {name}: != data"
+    P, S = states.shape
+    row = dict(case=name, P=P, n=n, S=S, K=-(-n // S),
+               w_max=int(words.shape[1]), max_abs_err=0)
+    if time_it:
+        g, threads = rans.lane_groups(S)
+        nbytes = 2 * words.size + 4 * states.size + 2 * freqs.size + P * n
+        b = rans_bound(torch, nbytes, -(-n // S), threads)
+        row.update(
+            ms=cuda_ms(lambda: rans.rans_decode_kernel(f, s, w, n)),
+            plain_ms=cuda_ms(lambda: rans.rans_decode_batch_plain(
+                rans._wide(f), rans._wide(s), rans._wide(w), n),
+                iters=WIRE_PLAIN_ITERS, warmup=1),
+            # back to back between two events: the device's time (the
+            # profiler records none of these ctypes launches on the card)
+            queued_ms=queued_ms(lambda: rans.rans_decode_kernel(f, s, w, n)),
+            bound_ms=b[0], bound_by=b[1], bytes_ms=b[2],
+            barrier_floor_ms=b[3], barrier_round_ns=b[4],
+            library_ms=None, lanes_a_thread=g, threads=threads)
+    emit("wire", check="a. decode kernel vs plain", **row)
+    return row
+
+
+def check_encode_kernel(torch, name, data: np.ndarray, freqs: np.ndarray,
+                        S: int, w_budget: int, time_it=False) -> dict:
+    """18a: the encode kernel against its plain version, bit for bit
+    (states, words padded to w_budget, the true n_words), and against the
+    numpy encoder ``rans_encode(..., freqs=...)``."""
+    from audio_sheet_retrieval_tpu_torch.ops import rans
+
+    dev = torch.device("cuda")
+    d = torch.from_numpy(np.ascontiguousarray(data, np.uint8)).to(dev)
+    f = rans._bits(freqs, torch.int16, dev)
+    pad = int(np.argmax(freqs))
+    st, w, nw = rans.rans_encode_kernel(d, f, S, w_budget, pad)
+    pst, pw, pnw = rans.rans_encode_plain(d.to(torch.int64), rans._wide(f),
+                                          S, w_budget, pad)
+    assert torch.equal(rans._wide(st), pst) and torch.equal(
+        rans._wide(w), pw) and int(nw) == int(pnw), \
+        f"18a encode {name}: kernel != plain"
+    _, st_h, w_h = rans.rans_encode(data, S, freqs=freqs)
+    m = min(w_budget, w_h.size)
+    words = rans._wide(w).cpu().numpy()
+    assert np.array_equal(rans._wide(st).cpu().numpy(), st_h) \
+        and int(nw) == w_h.size and np.array_equal(words[:m], w_h[:m]) \
+        and not words[m:].any(), f"18a encode {name}: != numpy encoder"
+    n = data.size
+    row = dict(case=name, n=n, S=S, K=-(-n // S), w_budget=w_budget,
+               n_words=int(nw), overflow=int(nw) > w_budget, max_abs_err=0)
+    if time_it:
+        g, threads = rans.lane_groups(S)
+        nbytes = n + 2 * 256 + 4 * S + 2 * w_budget + 4
+        b = rans_bound(torch, nbytes, -(-n // S), threads)
+        row.update(
+            ms=cuda_ms(lambda: rans.rans_encode_kernel(d, f, S, w_budget,
+                                                       pad)),
+            plain_ms=cuda_ms(lambda: rans.rans_encode_plain(
+                d.to(torch.int64), rans._wide(f), S, w_budget, pad),
+                iters=WIRE_PLAIN_ITERS, warmup=1),
+            queued_ms=queued_ms(lambda: rans.rans_encode_kernel(
+                d, f, S, w_budget, pad)),
+            bound_ms=b[0], bound_by=b[1], bytes_ms=b[2],
+            barrier_floor_ms=b[3], barrier_round_ns=b[4],
+            library_ms=None, lanes_a_thread=g, threads=threads)
+    emit("wire", check="a. encode kernel vs plain", **row)
+    return row
+
+
+def host_ms(fn, iters: int = 1) -> float:
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+@contextlib.contextmanager
+def numpy_rans():
+    """The host rANS encoder pinned to numpy (ASR_NO_NATIVE_RANS=1)."""
+    old = os.environ.get("ASR_NO_NATIVE_RANS")
+    os.environ["ASR_NO_NATIVE_RANS"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ASR_NO_NATIVE_RANS"]
+        else:
+            os.environ["ASR_NO_NATIVE_RANS"] = old
+
+
+def tutorial_prep():
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.cli import tutorial
+    from audio_sheet_retrieval_tpu_torch.omr.inference import prepare_image
+    from audio_sheet_retrieval_tpu_torch.utils.image_io import imread_gray
+
+    return prepare_image(tutorial.resize_page(imread_gray(
+        assets.tutorial_sheet_path())))
+
+
+def wire_kernels(torch, ctx) -> dict:
+    """18a. Both rANS kernels against their plain versions on the card at
+    the path's shapes and the edge cases; the host encode times."""
+    from audio_sheet_retrieval_tpu_torch.omr import inference as omr
+    from audio_sheet_retrieval_tpu_torch.ops import rans
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+
+    images, specs = ctx["images"], ctx["specs"]
+    out = {"decode": {}, "encode": {}, "host": {}}
+    # the sheet corpus: phase 4's strips padded white to the width bucket
+    # (to the widest bucket, should their buckets differ: one corpus shape)
+    width = max(-(-im.shape[1] // WIRE_BUCKET) for im in images) \
+        * WIRE_BUCKET
+    padded = [win._pad_white(im, width) for im in images]
+    out["host"]["rle2_encode_ms_a_strip"] = host_ms(
+        lambda: [win.rle_bitmap2_encode_strip(p) for p in padded]) / len(
+            padded)
+    payload, lens, piece_bytes = win.rans_encode_corpus_strips(padded)
+    out["host"]["sheet_corpus_encode_native_ms"] = host_ms(
+        lambda: win.rans_encode_corpus_strips(padded))
+    with numpy_rans():
+        out["host"]["sheet_corpus_encode_numpy_ms"] = host_ms(
+            lambda: win.rans_encode_corpus_strips(padded))
+        assert all(np.array_equal(a, b) for comp, ncomp in zip(
+            payload, win.rans_encode_corpus_strips(padded)[0])
+            for a, b in zip(comp, ncomp)), "numpy and native payloads differ"
+    encs = [win.rle_bitmap2_encode_strip(p) for p in padded]
+    for k, name in enumerate(("sheet_bm2", "sheet_vals2", "sheet_values")):
+        want = np.stack([np.pad(e[k], (0, lens[k] - e[k].size))
+                         for e in encs])
+        out["decode"][name] = check_decode_kernel(
+            torch, name, *payload[k], lens[k], want=want, time_it=True)
+    assert len(set(piece_bytes)) > 1, "18a: no unequal word counts"
+    ctx["wire_sheet"] = dict(padded=padded, payload=payload, lens=lens,
+                             piece_bytes=piece_bytes)
+    # the spectrogram corpus: phase 4's u8 codes, zero-padded to one length
+    T = max(s.shape[1] for s in specs)
+    spad = [np.pad(s, ((0, 0), (0, T - s.shape[1]))) for s in specs]
+    coded = win.spec_rans_encode_corpus(spad)
+    out["host"]["spec_corpus_encode_native_ms"] = host_ms(
+        lambda: win.spec_rans_encode_corpus(spad))
+    with numpy_rans():
+        out["host"]["spec_corpus_encode_numpy_ms"] = host_ms(
+            lambda: win.spec_rans_encode_corpus(spad))
+    out["decode"]["spec_u8"] = check_decode_kernel(
+        torch, "spec_u8", *coded[0], spad[0].size, time_it=True)
+    ctx["wire_spec"] = dict(specs=spad, coded=coded)
+    # the tutorial page's planes, four segments a plane, S = 2,048
+    prep = ctx["wire_prep"] = tutorial_prep()
+    page_u16 = omr._quantize_page(prep)
+    omr._page_wire_cache.clear()
+    out["host"]["page_encode_native_ms"] = host_ms(
+        lambda: (omr._page_wire_cache.clear(),
+                 omr._encode_page_wire(page_u16)))
+    with numpy_rans():
+        out["host"]["page_encode_numpy_ms"] = host_ms(
+            lambda: (omr._page_wire_cache.clear(),
+                     omr._encode_page_wire(page_u16)))
+    omr._page_wire_cache.clear()
+    freqs, states, words, n_px, reuse = omr._encode_page_wire(page_u16)
+    c = -(-n_px // 4)
+    out["decode"]["page_segments"] = check_decode_kernel(
+        torch, "page_segments", freqs, states, words, c, time_it=True)
+    # edge cases: n < S, constant rows (no words), a one-symbol table of
+    # frequency 4,096
+    rng = np.random.default_rng(18)
+    small = [np.minimum(rng.geometric(0.3, 100) - 1, 255).astype(np.uint8)]
+    f_s, s_s, w_s, _ = rans.rans_encode_batch(small, 128)
+    check_decode_kernel(torch, "n_below_S", f_s, s_s, w_s, 100,
+                        want=np.stack(small))
+    const = [np.full(700, 3, np.uint8), np.full(700, 250, np.uint8)]
+    f_c, s_c, w_c, _ = rans.rans_encode_batch(const)
+    assert w_c.shape[1] == 0
+    check_decode_kernel(torch, "constant", f_c, s_c, w_c, 700,
+                        want=np.stack(const))
+    one = np.zeros(256, np.uint16)
+    one[9] = 4096
+    check_encode_kernel(torch, "freq_4096", np.full(1000, 9, np.uint8), one,
+                        128, 64)
+    _, s1, w1 = rans.rans_encode(np.full(1000, 9, np.uint8), 128, freqs=one)
+    check_decode_kernel(torch, "freq_4096", one[None], s1[None],
+                        w1[None], 1000, want=np.full((1, 1000), 9, np.uint8))
+    # the encode at a map plane of the tutorial page (the system net's hi
+    # bytes, its static table and budget), K*S < w_budget, an overflow
+    net = omr.SegmentationNetwork(ctx["omr_system_params"], map_kind="system",
+                                  page_wire="raw", map_wire="raw",
+                                  device=ctx["dev"])
+    codes = np.round(net.predict_proba(prep).astype(np.float64) * 65535)
+    plane = (codes.astype(np.uint16) >> 8).astype(np.uint8).ravel()
+    sfreqs, budget, _ = omr._map_wire_tables("system")
+    w_budget = omr._map_w_budget(*prep.shape, budget)
+    out["encode"]["map_plane"] = check_encode_kernel(
+        torch, "map_plane", plane, sfreqs, rans.auto_streams(plane.size),
+        w_budget, time_it=True)
+    check_encode_kernel(torch, "K_S_below_budget", plane[:300], sfreqs, 128,
+                        1024)
+    check_encode_kernel(torch, "overflow", plane, sfreqs, 2048, 64)
+    return out
+
+
+def wire_sheet(torch, ctx) -> dict:
+    """18b. The sheet wire: each strip through the rle2 embedder against
+    the raw embedder on the same padded strip, exact and fullconv, bit for
+    bit; the corpus decode's stacks; the sheet query's counts, rle2 against
+    raw, on phase 7's gallery; the server's build wall over each wire; the
+    wire bytes a strip."""
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
+        make_fused_sheet_query,
+    )
+
+    dev, cfg, params = ctx["dev"], ctx["cfg"], ctx["params"]
+    images, w = ctx["images"], ctx["wire_sheet"]
+    padded = w["padded"]
+    for fullconv in (False, True):
+        rle2 = win.make_strip_embedder_rle_bitmap2(
+            params, cfg, padded[0].shape, center_crop=160, fullconv=fullconv,
+            device=dev)
+        raw = win.make_strip_embedder(params, cfg, center_crop=160,
+                                      fullconv=fullconv, device=dev)
+        for im, pad in zip(images, padded):
+            starts = np.arange(0, im.shape[1] - 200, 50, dtype=np.int32)
+            assert torch.equal(rle2(*win.rle_bitmap2_encode_strip(pad),
+                                    starts), raw(pad, starts)), \
+                f"18b rle2 embedder, fullconv={fullconv}"
+    stacks = win.make_corpus_rans_decoder(w["lens"], device=dev)(
+        w["payload"])
+    for p, pad in enumerate(padded):
+        strip = win.rle_bitmap2_decode_device(stacks[0][p], stacks[1][p],
+                                              stacks[2][p], *pad.shape)
+        assert np.array_equal(strip.cpu().numpy(), pad), f"18b strip {p}"
+    # the sheet query over phase 7's audio gallery: rle2 vs raw counts
+    gal, n = ctx["s2a_gallery"], len(images)
+    raw_q = make_fused_sheet_query(params, cfg, gal, n, n_candidates=25,
+                                   coding="raw")
+    rle_q = make_fused_sheet_query(params, cfg, gal, n, n_candidates=25,
+                                   coding="rle_bitmap2",
+                                   strip_shape=padded[0].shape)
+    lat = {"raw": [], "rle_bitmap2": []}
+    for im, pad in zip(images, padded):
+        starts = win.linspace_starts(im.shape[1], 200, 100)
+        t0 = time.perf_counter()
+        a = raw_q(im, starts).cpu().numpy()
+        lat["raw"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        b = rle_q(*win.rle_bitmap2_encode_strip(pad), starts).cpu().numpy()
+        lat["rle_bitmap2"].append(time.perf_counter() - t0)
+        assert np.array_equal(a, b), "18b rle2 counts differ from raw"
+    # the server's device build over the rle2 wire against the raw upload
+    # of PR 12 (the same embedder over each unpadded raw strip)
+    srv = make_server(ctx)
+    names = ["piece_%03d" % p for p in range(n)]
+    srv.initialize_sheet_db_from_imges_device(names[:2], images[:2])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.initialize_sheet_db_from_imges_device(names, images)
+    torch.cuda.synchronize()
+    rle2_build_s = time.perf_counter() - t0
+    embed = win.make_strip_embedder(params, cfg, center_crop=160,
+                                    device=dev)
+    t0 = time.perf_counter()
+    raw_codes = torch.cat([embed(im, np.arange(0, im.shape[1] - 200, 50,
+                                               dtype=np.int32))
+                           for im in images])
+    torch.cuda.synchronize()
+    raw_build_s = time.perf_counter() - t0
+    build_gap = float((srv.sheet_snippet_codes - raw_codes).abs().max())
+    assert build_gap <= GALLERY_ROWS_ATOL, build_gap
+    enc0 = [win.rle_bitmap2_encode_strip(p) for p in padded]
+    row = dict(
+        strips=n, strip_shape=list(images[0].shape),
+        padded_shape=list(padded[0].shape),
+        rle2_embedders_bit_identical=True, corpus_decode_bit_identical=True,
+        counts_rle2_equal_raw=True, queries=n,
+        query_p50_ms={k: float(np.percentile(v, 50) * 1000)
+                      for k, v in lat.items()},
+        server_build_s={"rle2_wire": rle2_build_s, "raw_upload": raw_build_s},
+        server_build_max_abs_gap_vs_raw=build_gap,
+        bytes_a_strip={
+            "raw": int(images[0].size),
+            "raw_padded": int(padded[0].size),
+            "rle2": float(np.mean([sum(c.size for c in e) for e in enc0])),
+            "rans_corpus": float(np.mean(w["piece_bytes"]))})
+    emit("wire", check="b. the sheet wire", **row)
+    return row
+
+
+def wire_spec(torch, ctx) -> dict:
+    """18c. The spectrogram wire: the corpus decode equals spec_quantize's
+    u8 codes of every piece; the delta flags; the bytes a spectrogram."""
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+
+    specs, coded = ctx["wire_spec"]["specs"], ctx["wire_spec"]["coded"]
+    payload, flags, scales, shape, piece_bytes = coded
+    codes = win.make_corpus_spec_rans_decoder(shape, device=ctx["dev"])(
+        payload, flags).cpu().numpy()
+    for p, s in enumerate(specs):
+        want, scale = win.spec_quantize(s, 8)
+        assert np.array_equal(codes[p], want), f"18c piece {p}"
+        assert scale == scales[p]
+    bins, T = shape
+    row = dict(pieces=len(specs), shape=list(shape), codes_equal=True,
+               delta_coded=int(flags.sum()), raw_coded=int(len(flags)
+                                                          - flags.sum()),
+               bytes_a_spec={"f32": 4 * bins * T, "u16": 2 * bins * T,
+                             "u8": bins * T,
+                             "rans": float(np.mean(piece_bytes))})
+    emit("wire", check="c. the spectrogram wire", **row)
+    return row
+
+
+def wire_omr(torch, ctx) -> dict:
+    """18d. OMR on the tutorial page: page_wire x map_wire in {raw, rans}^2
+    for the three nets (their own map tables) at map_bits 8 and 16: the
+    maps bit-identical, the page time of each pair; a tiny budget takes
+    the overflow path and equals raw; the bytes a page."""
+    from audio_sheet_retrieval_tpu_torch.omr import inference as omr
+
+    prep, dev = ctx["wire_prep"], ctx["dev"]
+    params = ctx["omr_params"]
+    pairs = [(p, m) for p in ("raw", "rans") for m in ("raw", "rans")]
+    times, overflows = {}, 0
+    for bits in (8, 16):
+        for kind in ("system", "bar", "note"):
+            shape = OMR_NOTE_SHAPE if kind == "note" else (512, 512)
+            maps = {}
+            for pw, mw in pairs:
+                net = omr.SegmentationNetwork(
+                    params[kind], shape, map_bits=bits, page_wire=pw,
+                    map_wire=mw, map_kind=kind, device=dev)
+                maps[pw, mw] = net.predict_proba(prep)
+                if bits == 16:
+                    times.setdefault(kind, {})[f"{pw}/{mw}"] = cuda_ms(
+                        lambda: net.predict_proba(prep), iters=5, warmup=1)
+                overflows += net.map_overflows
+            ref = maps["raw", "raw"]
+            assert all(np.array_equal(m, ref) for m in maps.values()), \
+                f"18d maps differ: {kind}, map_bits {bits}"
+        # the overflow path: a near-uniform table and a tiny budget
+        omr._map_wire_cache["_tiny"] = (np.full(256, 16, np.uint16), 0.001, 0)
+        try:
+            net = omr.SegmentationNetwork(params["system"], map_bits=bits,
+                                          map_kind="_tiny", device=dev)
+            got = net.predict_proba(prep)
+        finally:
+            omr._map_wire_cache.pop("_tiny")
+        assert net.map_overflows == 1 and np.array_equal(
+            got, omr.SegmentationNetwork(params["system"], map_bits=bits,
+                                         page_wire="raw", map_wire="raw",
+                                         device=dev).predict_proba(prep))
+    net = omr.SegmentationNetwork(params["system"], map_kind="system",
+                                  device=dev)
+    (top, bottom, left, right), _ = net.tile_origins(*prep.shape)
+    freqs, states, words, n_px, reuse = omr._encode_page_wire(
+        omr._quantize_page(prep))
+    sfreqs, budget, pad_sym = omr._map_wire_tables("system")
+    w_budget = omr._map_w_budget(*prep.shape, budget)
+    S = omr.rans.auto_streams(n_px)
+    row = dict(
+        nets=["system", "bar", "note"], map_bits=[8, 16],
+        maps_bit_identical=True, overflow_path_equal_raw=True,
+        real_table_overflows=overflows, page_ms=times,
+        bytes_a_page={
+            "page_raw_u16_canvas": 2 * (prep.shape[0] + top + bottom)
+            * (prep.shape[1] + left + right),
+            "page_rans_upload": int(freqs.nbytes + states.nbytes
+                                    + words.nbytes),
+            "plane_reuse": bool(reuse),
+            "map_raw_u16": 2 * n_px,
+            "map_coded_u16": 2 * (2 + 2 * S + w_budget + (n_px + 1) // 2)})
+    emit("wire", check="d. OMR wires", **row)
+    return row
+
+
+def phase_wire(torch, ctx):
+    """18. The wire codecs: both rANS kernels against their plain versions
+    (18a, not counted), then the sheet, spectrogram and OMR wires end to
+    end (18b-d, counted)."""
+    from audio_sheet_retrieval_tpu_torch.models import unet
+    from audio_sheet_retrieval_tpu_torch import assets
+
+    t_phase = time.perf_counter()
+    ctx["omr_params"] = {kind: unet.load_unet_checkpoint(
+        assets.omr_weights_path(kind), ctx["dev"])
+        for kind in ("system", "bar", "note")}
+    ctx["omr_system_params"] = ctx["omr_params"]["system"]
+    kernels = wire_kernels(torch, ctx)
+    emit("wire", check="a. host encodes (ms)", **kernels["host"])
+    zero_launches()
+    sheet = wire_sheet(torch, ctx)
+    spec = wire_spec(torch, ctx)
+    omr_row = wire_omr(torch, ctx)
+    launches = read_launches()
+    assert launches["rans_decode"] > 0 and launches["rans_encode"] > 0, \
+        launches
+    ctx["wire"] = dict(kernels=kernels, sheet=sheet, spec=spec, omr=omr_row)
+    emit("wire", launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 RANK_SCENARIOS = {"fit": rank_gloo, "nccl_fit": rank_nccl,
                   "gallery": rank_gallery}
 
@@ -3882,7 +4430,8 @@ def main() -> int:
         for phase in (phase_s2a, phase_streaming, phase_audio,
                       phase_eval_refine, phase_train, phase_device_pool,
                       phase_precision, phase_alignment, phase_omr,
-                      phase_reports, phase_mesh, phase_gallery):
+                      phase_reports, phase_mesh, phase_gallery,
+                      phase_wire):
             for name, n in phase(torch, ctx).items():
                 launches[name] += n
     rows = []
@@ -3890,10 +4439,13 @@ def main() -> int:
                 "audio_sheet_retrieval_tpu/ops/topk_gallery.py:45",
                 "gather_feature_windows":
                 "audio_sheet_retrieval_tpu/ops/windows.py:84",
-                "dtw": "audio_sheet_retrieval_tpu/ops/dtw.py:46"}
+                "dtw": "audio_sheet_retrieval_tpu/ops/dtw.py:46",
+                "rans_decode": "audio_sheet_retrieval_tpu/ops/rans.py:411",
+                "rans_encode": "audio_sheet_retrieval_tpu/ops/rans.py:549"}
     sources = {"topk_gallery": "topk_gallery.cu",
                "gather_feature_windows": "feature_windows.cu",
-               "dtw": "dtw.cu"}
+               "dtw": "dtw.cu", "rans_decode": "rans.cu",
+               "rans_encode": "rans.cu"}
     kernel_stats["dtw"] = dict(
         ctx["dtw_stats"], traceback_launches=launches["dtw_traceback"],
         note="replaces lax.scan loops (not Pallas): the accumulation "
@@ -3901,6 +4453,18 @@ def main() -> int:
         "audio_sheet_retrieval_tpu/ops/dtw.py:94")
     launches["dtw"] = launches["dtw_accumulate"]
     kernel_stats["topk_gallery"]["db_shard"] = ctx["shard_topk"]
+    # the rANS kernels: a JAX lax.scan each (not Pallas); the decode's
+    # headline shape is the tutorial page's segments (phase 15's OMR
+    # path), the encode's a map plane of that page
+    wire = ctx["wire"]["kernels"]
+    kernel_stats["rans_decode"] = dict(
+        wire["decode"]["page_segments"], shapes=wire["decode"],
+        note="replaces a lax.scan (not Pallas): "
+        "audio_sheet_retrieval_tpu/ops/rans.py:411 _decode_batch_jit")
+    kernel_stats["rans_encode"] = dict(
+        wire["encode"]["map_plane"],
+        note="replaces a lax.scan and sort (not Pallas): "
+        "audio_sheet_retrieval_tpu/ops/rans.py:549 _encode_device_jit")
     for name, stats in kernel_stats.items():
         rows.append({"name": name, "route": "cuda",
                      "source": "audio_sheet_retrieval_tpu_torch/csrc/"

@@ -236,7 +236,7 @@ def main(argv=None) -> int:
     audio_gal = DeviceGallery(torch.cat(audio_codes),
                               np.concatenate(audio_ids), device=dev)
     sheet_query = make_fused_sheet_query(params, cfg, audio_gal, len(images),
-                                         n_candidates=25)
+                                         n_candidates=25, coding="raw")
     strips = [(im, linspace_starts(im.shape[1], 200, 100))
               for im in images[:args.queries]]
     for im, st in strips[:5]:

@@ -4,7 +4,10 @@
 The page is rows 0:420 of the vendored tutorial page: one row of three
 512 x 512 tiles a net (the full page is the slow test at the end, and
 ``chip_smoke.py`` phase 15 on the card). Both packages run the shipped
-system, bar and note U-Nets on raw page and map wires.
+system, bar and note U-Nets; JAX on raw page and map wires, the port on
+its defaults, the rANS wires, which are lossless: the port's maps over
+them equal its raw wires' bit for bit, and its page wire and map download
+buffer equal JAX's byte for byte (where JAX's buffer is right).
 
 Tolerances and why:
 
@@ -26,6 +29,7 @@ Tolerances and why:
 import math
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -162,13 +166,216 @@ def test_precision_arms_on_a_real_tile(crop, port_nets, page, dtype, prec,
 
 
 @pytest.mark.parametrize("wire", ["page_wire", "map_wire"])
-def test_rans_wires_raise(port_nets, wire):
-    with pytest.raises(NotImplementedError, match="#8"):
-        tinf.SegmentationNetwork(port_nets["bar"].params, device="cpu",
-                                 **{wire: "rans"})
-    with pytest.raises(ValueError):
+def test_unknown_wire_raises(port_nets, wire):
+    with pytest.raises(ValueError, match=wire):
         tinf.SegmentationNetwork(port_nets["bar"].params, device="cpu",
                                  **{wire: "coded"})
+    net = tinf.SegmentationNetwork(port_nets["bar"].params, device="cpu",
+                                   **{wire: "raw"})
+    assert getattr(net, wire) == "raw"
+
+
+def test_wire_defaults_are_jax(port_nets):
+    """``page_wire`` and ``map_wire`` default to "rans", as in JAX."""
+    import inspect
+
+    for name in ("__init__", "load"):
+        got = inspect.signature(getattr(tinf.SegmentationNetwork, name))
+        want = inspect.signature(getattr(jinf.SegmentationNetwork, name))
+        for arg in ("page_wire", "map_wire", "map_kind", "map_bits"):
+            assert got.parameters[arg].default == \
+                want.parameters[arg].default, (name, arg)
+    net = tinf.SegmentationNetwork(port_nets["bar"].params, device="cpu",
+                                   map_kind="bar")
+    assert (net.page_wire, net.map_wire) == ("rans", "rans")
+
+
+@pytest.mark.parametrize("kind", ["system", "bar", "note", None, "other"])
+def test_map_wire_tables_equal_jax(kind):
+    freqs, budget, pad_sym = tinf._map_wire_tables(kind)
+    jfreqs, jbudget, _, _, jpad = jinf._map_wire_tables(kind)
+    np.testing.assert_array_equal(freqs, jfreqs)
+    assert freqs.dtype == jfreqs.dtype and (budget, pad_sym) == (jbudget,
+                                                                 jpad)
+
+
+@pytest.mark.parametrize("source", ["u16", "u8"])
+def test_page_wire_equals_jax_and_decodes(crop, source):
+    """``_encode_page_wire``: JAX's payload byte for byte (a u8-origin page
+    ships one plane), the cache keyed by content, and the device decode
+    gives the page's u16 codes."""
+    # the tutorial page is 8-bit: its u16 codes are k * 257 (lo == hi)
+    noise = np.random.default_rng(1).normal(0, 1e-3, crop.shape)
+    page = tinf._quantize_page(np.clip(crop + noise, 0, 1).astype(
+        np.float32) if source == "u16" else crop)
+    got = tinf._encode_page_wire(page)
+    want = jinf._encode_page_wire(page)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    assert got[4] is (source == "u8")
+    assert tinf._encode_page_wire(page.copy()) is got       # cached
+    codes = tinf._decode_page_wire(got, *page.shape, torch.device("cpu"))
+    np.testing.assert_array_equal(codes.numpy(), page.astype(np.int32))
+
+
+def map_codes(bits, shape=(150, 170), seed=4):
+    rng = np.random.default_rng(seed)
+    p = np.where(rng.random(shape) < 0.9, 0.0, rng.random(shape))
+    return np.round(p * ((1 << bits) - 1)).astype(
+        np.uint8 if bits == 8 else np.uint16)
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_map_download_buffer_equals_jax(bits):
+    """The coded map download buffer of the same codes, byte for byte
+    where JAX's is right: the word count, the states, the words, and (u16)
+    the lo bytes; past n_words the port's words are zeros (JAX's sort
+    leaves candidates there). Decoded on the host: the codes."""
+    from audio_sheet_retrieval_tpu.ops import rans as jrans
+
+    codes = map_codes(bits)
+    h, w = codes.shape
+    freqs, _, pad_sym = tinf._map_wire_tables("system")
+    S = tinf.rans.auto_streams(h * w)
+    w_budget = 9000                                  # below K*S
+    assert w_budget < -(-h * w // S) * S
+    dev_codes = torch.from_numpy(codes.astype(np.int32)) if bits == 16 \
+        else torch.from_numpy(codes)
+    got = tinf._encode_map_download(
+        dev_codes, bits, h * w,
+        torch.from_numpy(freqs.view(np.int16)), pad_sym, w_budget)
+    got = got.numpy().view(np.uint16)
+    tabA, tabB = jrans.encode_magic_tables(freqs)
+    want = np.asarray(jinf._encode_map_download(
+        jnp.asarray(codes), bits, h * w, jnp.asarray(tabA),
+        jnp.asarray(tabB), pad_sym, w_budget))
+    assert got.shape == want.shape
+    n_words = int(got[0]) | int(got[1]) << 16
+    head = 2 + 2 * S
+    np.testing.assert_array_equal(got[:head + n_words],
+                                  want[:head + n_words])
+    assert not got[head + n_words:head + w_budget].any()
+    np.testing.assert_array_equal(got[head + w_budget:],
+                                  want[head + w_budget:])
+    np.testing.assert_array_equal(tinf._decode_map_download(
+        got, bits, h, w, freqs, w_budget), codes)
+
+
+def random_unet(seed=3):
+    from audio_sheet_retrieval_tpu.models import unet as junet
+    from audio_sheet_retrieval_tpu_torch.models import unet as tunet
+    from test_torch_unet import random_unet_arrays
+
+    arrays = random_unet_arrays(seed)
+    return junet.import_unet_params(arrays), tunet.import_unet_params(
+        arrays, "cpu")
+
+
+def fitted_recipe(kind, proba, bits, budget_bpx):
+    """A static table fitted to a map's coded plane, planted in the port's
+    and JAX's recipe caches under ``kind`` (the JAX tests' recipe)."""
+    from audio_sheet_retrieval_tpu.ops import rans as jrans
+
+    codes = np.round(np.clip(proba, 0, 1) * ((1 << bits) - 1))
+    plane = codes.astype(np.uint8) if bits == 8 else \
+        (codes.astype(np.uint16) >> 8).astype(np.uint8)
+    freqs = jrans.quantize_freqs(np.bincount(plane.ravel(),
+                                             minlength=256) + 1)
+    tinf._map_wire_cache[kind] = (freqs, budget_bpx, int(np.argmax(freqs)))
+    tabA, tabB = jrans.encode_magic_tables(freqs)
+    jinf._map_wire_cache[kind] = (freqs, budget_bpx, jnp.asarray(tabA),
+                                  jnp.asarray(tabB), int(np.argmax(freqs)))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_both_rans_wires_equal_raw_and_jax(bits):
+    """page_wire x map_wire in {raw, rans}^2 on a random U-Net: four maps
+    equal bit for bit, no overflow with a table fitted to the map; JAX's
+    rans maps within one code (the file's tolerance)."""
+    jparams, tparams = random_unet()
+    img = np.random.default_rng(4).random((150, 170)).astype(np.float32)
+
+    def net(pkg, **kw):
+        mod, params = (tinf, tparams) if pkg == "port" else (jinf, jparams)
+        extra = dict(device="cpu") if pkg == "port" else {}
+        return mod.SegmentationNetwork(params, input_shape=(64, 64),
+                                       map_bits=bits, **kw, **extra)
+
+    ref = net("port", page_wire="raw", map_wire="raw").predict_proba(img)
+    try:
+        fitted_recipe("_fit", ref, bits, 2.0)
+        for pw in ("raw", "rans"):
+            n = net("port", page_wire=pw, map_wire="rans", map_kind="_fit")
+            np.testing.assert_array_equal(n.predict_proba(img), ref)
+            assert n.map_wire == "rans" and n.map_overflows == 0
+            np.testing.assert_array_equal(net(
+                "port", page_wire=pw, map_wire="raw").predict_proba(img), ref)
+        want = net("jax", map_kind="_fit").predict_proba(img)
+    finally:
+        tinf._map_wire_cache.pop("_fit", None)
+        jinf._map_wire_cache.pop("_fit", None)
+    assert np.abs(codes(ref, bits) - codes(want, bits)).max() <= 1
+
+
+def test_small_u16_map_decodes_as_raw():
+    """Not reproduced, ``ops/rans.py:582``: a map so small that K*S <
+    w_budget (600 px: K*S = 640, the budget's floor 1,024 words). JAX's
+    words are K*S long, so its buffer's lo bytes sit 384 words early; the
+    port's buffer keeps them where the host reads them."""
+    from audio_sheet_retrieval_tpu.ops import rans as jrans
+
+    jparams, tparams = random_unet(5)
+    img = np.random.default_rng(9).random((20, 30)).astype(np.float32)
+    raw = tinf.SegmentationNetwork(tparams, input_shape=(16, 16),
+                                   page_wire="raw", map_wire="raw",
+                                   device="cpu").predict_proba(img)
+    try:
+        fitted_recipe("_small", raw, 16, 0.01)
+        net = tinf.SegmentationNetwork(tparams, input_shape=(16, 16),
+                                       map_kind="_small", device="cpu")
+        np.testing.assert_array_equal(net.predict_proba(img), raw)
+        assert net.map_overflows == 0
+        freqs = tinf._map_wire_cache["_small"][0]
+    finally:
+        tinf._map_wire_cache.pop("_small", None)
+        jinf._map_wire_cache.pop("_small", None)
+    assert tinf._map_w_budget(20, 30, 0.01) == 1024
+    tabA, tabB = jrans.encode_magic_tables(freqs)
+    jbuf = jinf._encode_map_download(
+        jnp.asarray(codes(raw, 16).astype(np.uint16)), 16, 600,
+        jnp.asarray(tabA), jnp.asarray(tabB), int(np.argmax(freqs)), 1024)
+    assert jbuf.shape[0] == 2 + 2 * 128 + 640 + 300   # JAX: short
+
+
+def test_map_overflow_falls_back_to_raw_codes():
+    """A tiny budget overflows: the raw codes come down, equal to raw."""
+    _, tparams = random_unet()
+    img = np.random.default_rng(4).random((150, 170)).astype(np.float32)
+    ref = tinf.SegmentationNetwork(tparams, input_shape=(64, 64),
+                                   map_wire="raw",
+                                   device="cpu").predict_proba(img)
+    try:
+        tinf._map_wire_cache["_tiny"] = (
+            np.full(256, 16, np.uint16), 0.001, 0)
+        net = tinf.SegmentationNetwork(tparams, input_shape=(64, 64),
+                                       map_kind="_tiny", device="cpu")
+        np.testing.assert_array_equal(net.predict_proba(img), ref)
+        assert net.map_overflows == 1
+    finally:
+        tinf._map_wire_cache.pop("_tiny", None)
+
+
+@pytest.mark.parametrize("kind", ["system", "bar"])
+def test_rans_wires_on_the_crop_equal_raw(crop, crop_maps, port_nets, kind):
+    """The shipped nets on the tutorial crop with both wires at their
+    defaults and the detector's own table: the raw wires' map bit for bit
+    (the ``crop_maps`` fixture holds it within one code of JAX's)."""
+    raw = port_net(kind, page_wire="raw", map_wire="raw").predict_proba(crop)
+    net = port_net(kind, map_kind=kind)
+    np.testing.assert_array_equal(net.predict_proba(crop), raw)
+    np.testing.assert_array_equal(crop_maps[kind][0], raw)
 
 
 def test_entry_points_default_to_the_card(port_nets):

@@ -3,8 +3,10 @@ the CPU: two ranks of a gloo process group, each a subprocess running
 ``tests/torch_parallel_child.py``, against one process on the
 concatenated batch and against the JAX package.
 
-Every spawn has its own free port and its own deadline, so no test can
-hang the suite. Sizes are small (``num_filters=4``,
+Every spawn has its own rendezvous file (``parallel.dryrun.rendezvous``:
+a free TCP port picked ahead of the ranks can be taken by another process
+before rank 0 listens on it) and its own deadline, so no test can hang the
+suite or meet another's group. Sizes are small (``num_filters=4``,
 ``dim_latent=8``, batch 16, as the JAX package's ``tests/test_fit_mesh.py``).
 
 Tolerances, each with its reason:
@@ -25,7 +27,6 @@ Tolerances, each with its reason:
 
 import os
 import re
-import socket
 import subprocess
 import sys
 import time
@@ -47,6 +48,7 @@ from audio_sheet_retrieval_tpu_torch.data.pools import (
     SYSTEM_HEIGHT,
 )
 from audio_sheet_retrieval_tpu_torch.models import lasagne_import as tli
+from audio_sheet_retrieval_tpu_torch.parallel import dryrun
 from audio_sheet_retrieval_tpu_torch.parallel import sharded_pool as tsp
 
 import torch_parallel_child as child
@@ -59,18 +61,12 @@ CHILD = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 TIMEOUT = 240   # seconds a spawn may take; a run takes a few
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def spawn(scenario, outdir, world=2) -> list:
     """Run ``scenario`` on ``world`` ranks -> each rank's output. Each
     rank writes into a file of its own (a pipe that no one reads while
     the parent waits on another rank could block a rank's write, and with
     it a collective), and all ranks share one deadline."""
-    port = str(_free_port())
+    init = dryrun.rendezvous(outdir)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     logs = [os.path.join(outdir, f"{scenario}_rank{r}.log")
             for r in range(world)]
@@ -79,7 +75,7 @@ def spawn(scenario, outdir, world=2) -> list:
         for r, log in enumerate(logs):
             with open(log, "w") as fp:
                 procs.append(subprocess.Popen(
-                    [sys.executable, CHILD, str(r), str(world), port,
+                    [sys.executable, CHILD, str(r), str(world), init,
                      scenario, str(outdir)], stdout=fp,
                     stderr=subprocess.STDOUT, env=env))
         deadline = time.monotonic() + TIMEOUT
@@ -332,16 +328,15 @@ def test_one_rank_group_fits_bit_identically_to_no_group(tmp_path):
 @pytest.mark.parametrize("given", [dict(backend="nccl"),
                                    dict(rank=1, world_size=2)],
                          ids=["backend", "rank_and_world"])
-def test_make_mesh_refuses_a_group_it_does_not_match(given):
+def test_make_mesh_refuses_a_group_it_does_not_match(given, tmp_path):
     """A group already running is joined only as it runs: another backend,
     rank or world size than the caller names raises."""
     import torch.distributed as dist
 
     from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm
 
-    port = _free_port()
-    m = pm.make_mesh("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
-                     world_size=1)
+    m = pm.make_mesh("gloo", init_method=dryrun.rendezvous(str(tmp_path)),
+                     rank=0, world_size=1)
     try:
         assert (m.rank, m.world_size, m.device) == (0, 1, torch.device("cpu"))
         args = dict(dict(backend="gloo", rank=0, world_size=1), **given)

@@ -7,8 +7,8 @@ virtual devices, on the same numpy inputs.
 
 Two spawns, one for each layout: ``1 x 4`` (``db`` = 4) runs every case,
 ``2 x 2`` (``data`` = ``db`` = 2) the serving matrix and the CCA fit over
-``data``. Each spawn has its own free port and one deadline, and each rank
-writes into a file of its own (``parallel.dryrun.spawn_ranks``). Sizes are
+``data``. Each spawn has its own rendezvous file and one deadline, and
+each rank writes into a file of its own (``parallel.dryrun.spawn_ranks``). Sizes are
 the JAX package's tests' (``num_filters=4``, ``dim_latent=8``,
 ``tests/test_parallel.py``).
 
@@ -178,14 +178,18 @@ def cases_1x4():
         strips=_strips(13, [1400, 700, 1100, 450, 900],
                        [200, 161, 200, 175, 160]),
         n_candidates=7, queries=_spec_queries(14, (4.0, 0.05)))
+    cases["sheet_build_coded"] = dict(cases["sheet_build"], coded=True)
     for bits in (16, 8):
         cases[f"audio_build_u{bits}"] = dict(
             kind="audio_build", cfg=SMALL, tree=_model(6)[1],
             specs=audio_specs(19, [260, 140, 200, 331]), quantize=bits)
+    cases["audio_build_coded"] = dict(cases["audio_build_u8"], coded=True)
     cases["sheet_query"] = dict(
         kind="audio_build", cfg=SMALL, tree=_model(7)[1],
         specs=audio_specs(23, [260, 140, 200, 331, 180]), quantize=16,
         n_candidates=7, strips=[sheet_query_strip()])
+    cases["sheet_query_coded"] = dict(cases["sheet_query"], quantize=8,
+                                      coded=True)
     cases["serving_matrix"] = serving_matrix_case()
     return cases
 
@@ -193,7 +197,8 @@ def cases_1x4():
 def cases_2x2():
     h1, h2 = cca_inputs()
     return {"cca_data": dict(kind="cca", H1=h1, H2=h2, axis="data"),
-            "serving_matrix": serving_matrix_case()}
+            "serving_matrix": serving_matrix_case(),
+            "serving_matrix_coded": dict(serving_matrix_case(), coded=True)}
 
 
 def spawn(outdir, data, db, cases) -> list:
@@ -202,9 +207,9 @@ def spawn(outdir, data, db, cases) -> list:
     with open(os.path.join(outdir, "cases.pkl"), "wb") as fp:
         pickle.dump(cases, fp)
     world = data * db
-    port = str(dryrun.free_port())
+    init = dryrun.rendezvous(outdir)
     logs = dryrun.spawn_ranks(
-        lambda r: [sys.executable, CHILD, str(r), str(world), port,
+        lambda r: [sys.executable, CHILD, str(r), str(world), init,
                    str(data), str(db), str(outdir)],
         world, outdir, f"gallery_{data}x{db}", TIMEOUT)
     outs = []
@@ -473,28 +478,107 @@ def test_hybrid_layout_counts_equal_the_1d_layout(run_1x4, run_2x2):
     assert int(got.sum()) == 10 * 5
 
 
+def test_sharded_sheet_build_coded_matches_jax(run_1x4, mesh4):
+    """``build_sharded_sheet_gallery_coded`` over mixed widths and odd
+    heights: the port's raw build's rows bit for bit (the decoded pixels
+    are the strips'), JAX's coded build's rows, ids and n_real, and its
+    counts."""
+    case = cases_1x4()["sheet_build_coded"]
+    jparams = _model(4)[0]
+    cfg = get_model_config("mutopia_ccal_cont_rsz", **SMALL)
+    codes, ids, n_real = jpg.build_sharded_sheet_gallery_coded(
+        mesh4, jparams, cfg, case["strips"])
+    outs = [o["sheet_build_coded"] for o in run_1x4]
+    np.testing.assert_array_equal(
+        whole_gallery(outs), whole_gallery([o["sheet_build"]
+                                            for o in run_1x4]))
+    np.testing.assert_allclose(whole_gallery(outs), np.asarray(codes),
+                               atol=2e-5, rtol=0)
+    for o in outs:
+        np.testing.assert_array_equal(o["ids"], ids)
+        assert (o["n_real"], o["total"]) == (n_real, codes.shape[0])
+    query = jpg.make_sharded_piece_query(
+        mesh4, jparams, cfg, codes, ids, len(case["strips"]),
+        n_candidates=7, n_real=n_real)
+    got = same_on_every_rank(run_1x4, "sheet_build_coded", "counts")
+    for (payload, scale, starts), counts in zip(case["queries"], got):
+        np.testing.assert_array_equal(counts, np.asarray(query(
+            jnp.asarray(payload), scale, jnp.asarray(starts))))
+
+
+def test_sharded_audio_build_coded_matches_jax(run_1x4, mesh4):
+    """``build_sharded_audio_gallery(coded=True, quantize=8)``: the rows of
+    ``coded=False`` bit for bit, and JAX's coded build's."""
+    case = cases_1x4()["audio_build_coded"]
+    cfg = get_model_config("mutopia_ccal_cont_rsz", **SMALL)
+    codes, ids, n_real = jpg.build_sharded_audio_gallery(
+        mesh4, _model(6)[0], cfg, case["specs"], quantize=8, coded=True)
+    outs = [o["audio_build_coded"] for o in run_1x4]
+    np.testing.assert_array_equal(
+        whole_gallery(outs), whole_gallery([o["audio_build_u8"]
+                                            for o in run_1x4]))
+    np.testing.assert_allclose(whole_gallery(outs), np.asarray(codes),
+                               atol=2e-5, rtol=0)
+    for o in outs:
+        np.testing.assert_array_equal(o["ids"], ids)
+        assert (o["n_real"], o["total"]) == (n_real, codes.shape[0])
+
+
+@pytest.mark.parametrize("name", ["sheet_query", "sheet_query_coded"])
+def test_sharded_sheet_query_rle2_matches_jax(run_1x4, mesh4, name):
+    """The default coding, ``"rle_bitmap2"`` (with a ``block_k`` pair),
+    over the raw and the coded audio build: the raw query's counts, and
+    JAX's rle2 query's over JAX's build."""
+    case = cases_1x4()[name]
+    cfg = get_model_config("mutopia_ccal_cont_rsz", **SMALL)
+    codes, ids, n_real = jpg.build_sharded_audio_gallery(
+        mesh4, _model(7)[0], cfg, case["specs"], quantize=case["quantize"],
+        coded=case.get("coded", False))
+    (strip, starts), = case["strips"]
+    query = jpg.make_sharded_sheet_query(
+        mesh4, _model(7)[0], cfg, codes, ids, len(case["specs"]),
+        n_candidates=7, strip_shape=strip.shape, n_real=n_real)
+    want = np.asarray(query(*(jnp.asarray(a) for a in
+                              jwin.rle_bitmap2_encode_strip(strip)),
+                            jnp.asarray(starts)))
+    got = same_on_every_rank(run_1x4, name, "counts_rle2")[0]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, same_on_every_rank(run_1x4, name, "counts")[0])
+
+
+def test_hybrid_layout_coded_counts_equal_the_raw_ones(run_1x4, run_2x2):
+    """The serving matrix over the coded sheet build on the 2 x 2 mesh:
+    the raw build's counts of the 1 x 4 mesh, and the same rows."""
+    got = same_on_every_rank(run_2x2, "serving_matrix_coded", "counts")
+    want = same_on_every_rank(run_1x4, "serving_matrix", "counts")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    db_ranks = [o["serving_matrix_coded"] for o in run_2x2[:2]]
+    raw_ranks = [o["serving_matrix"] for o in run_2x2[:2]]
+    np.testing.assert_array_equal(whole_gallery(db_ranks),
+                                  whole_gallery(raw_ranks))
+
+
 def test_the_wire_arms_raise_naming_the_roadmap():
+    """What the wire arms refuse, with the JAX module's errors: a coded
+    audio build other than u8, an unknown coding, the rle2 query without
+    its strip shape, and a ``block_k`` that is not a pair of positive
+    ints."""
     cfg = get_model_config("mutopia_ccal_cont_rsz", **SMALL)
     specs = audio_specs(1, [100, 120])
-    for call in (
-            lambda: tpg.build_sharded_sheet_gallery_coded(None, None, cfg,
-                                                          []),
-            lambda: tpg.build_sharded_audio_gallery(None, None, cfg, specs,
-                                                    quantize=8, coded=True),
-            lambda: tpg.make_sharded_sheet_query(None, None, cfg, None, None,
-                                                 2, strip_shape=(200, 900)),
-            lambda: tpg.make_sharded_sheet_query(None, None, cfg, None, None,
-                                                 2, coding="raw",
-                                                 block_k=(8, 8))):
-        with pytest.raises(NotImplementedError, match="#8"):
-            call()
-    # JAX's own refusal comes first
     with pytest.raises(ValueError, match="u8 spec-rANS"):
         tpg.build_sharded_audio_gallery(None, None, cfg, specs, quantize=16,
                                         coded=True)
     with pytest.raises(ValueError, match="unknown coding"):
         tpg.make_sharded_sheet_query(None, None, cfg, None, None, 2,
                                      coding="rle")
+    with pytest.raises(ValueError, match="strip_shape"):
+        tpg.make_sharded_sheet_query(None, None, cfg, None, None, 2)
+    for block_k in ((8,), (8, 0), (8.0, 8), "88"):
+        with pytest.raises(ValueError, match="block_k"):
+            tpg.make_sharded_sheet_query(None, None, cfg, None, None, 2,
+                                         coding="raw", block_k=block_k)
 
 
 # --- the dry run -------------------------------------------------------------

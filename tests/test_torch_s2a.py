@@ -113,11 +113,12 @@ def test_detect_performance_matches_jax(pair):
                                              n_candidates=5)
     assert got[0] == want[0]
     np.testing.assert_allclose(got[1], want[1], atol=VOTES_ATOL)
-    # the fused query is reused for the same gallery and n_candidates
-    key = tsrv._fused_sheet_query_key
+    # the fused query is reused for the same gallery, n_candidates and
+    # strip geometry
+    keys = list(tsrv._fused_sheet_queries)
     tsrv.detect_performance_from_sheet(table[names[2]][0], top_k=2,
                                        n_candidates=5)
-    assert tsrv._fused_sheet_query_key == key
+    assert list(tsrv._fused_sheet_queries) == keys
     assert topk_gallery.launches == before  # CPU: the plain version
 
 

@@ -15,7 +15,7 @@ what the parent compares into ``outdir``:
   fit_part2 that fit again, resumed from part1's file
   fit_one   a one-rank group: one fit epoch with the mesh and without
 
-    python tests/torch_parallel_child.py <rank> <world> <port> <scenario> <outdir>
+    python tests/torch_parallel_child.py <rank> <world> <init_method> <scenario> <outdir>
 
 Each epoch prints ``EPOCH <rank> <n>: <losses and MRRs as float hex>``; the
 last line is ``OK <rank>``. The module's input functions (``small_cfg``,
@@ -225,7 +225,7 @@ def scenario_fit_one(mesh, outdir):
 
 
 def main():
-    rank, world, port, scenario, outdir = (int(sys.argv[1]),
+    rank, world, init, scenario, outdir = (int(sys.argv[1]),
                                            int(sys.argv[2]), sys.argv[3],
                                            sys.argv[4], sys.argv[5])
     torch.set_num_threads(1)
@@ -233,8 +233,8 @@ def main():
 
     from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm
 
-    mesh = pm.make_mesh("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=world)
+    mesh = pm.make_mesh("gloo", init_method=init, rank=rank,
+                        world_size=world)
     try:
         globals()["scenario_" + scenario](mesh, outdir)
     finally:

@@ -13,14 +13,16 @@ parent wrote into ``outdir/cases.pkl`` and writing its results into
                 block and its validity -> (scores, rows)
   cca           ``sharded_cca_fit`` over the case's axis
   piece_query   ``make_sharded_piece_query`` over host rows -> counts
-  sheet_build   ``build_sharded_sheet_gallery``: this rank's block, its
-                offset, the row count, ids, n_real; the piece query's
+  sheet_build   ``build_sharded_sheet_gallery`` (with ``coded``:
+                ``build_sharded_sheet_gallery_coded``): this rank's block,
+                its offset, the row count, ids, n_real; the piece query's
                 counts over it
-  audio_build   ``build_sharded_audio_gallery``: as ``sheet_build``; the
-                raw ``make_sharded_sheet_query``'s counts over it
+  audio_build   ``build_sharded_audio_gallery`` (``coded`` as given): as
+                ``sheet_build``; ``make_sharded_sheet_query``'s counts over
+                it, raw and over the rle2 wire
 
-    python tests/torch_parallel_gallery_child.py <rank> <world> <port> \\
-        <data> <db> <outdir>
+    python tests/torch_parallel_gallery_child.py <rank> <world> \\
+        <init_method> <data> <db> <outdir>
 
 The last line is ``OK <rank>``. Parameter trees arrive as plain tuples and
 dicts of numpy arrays (the JAX package's tree without its classes).
@@ -38,6 +40,7 @@ import torch  # noqa: E402
 
 from audio_sheet_retrieval_tpu_torch.models import lasagne_import as tli  # noqa: E402,E501
 from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config  # noqa: E402,E501
+from audio_sheet_retrieval_tpu_torch.ops import windows as win  # noqa: E402
 from audio_sheet_retrieval_tpu_torch.parallel import gallery as pg  # noqa: E402,E501
 from audio_sheet_retrieval_tpu_torch.parallel import mesh as pm  # noqa: E402
 
@@ -82,7 +85,9 @@ def run_piece_query(mesh, case):
 
 def run_sheet_build(mesh, case):
     cfg, params = model(case)
-    gal = pg.build_sharded_sheet_gallery(mesh, params, cfg, case["strips"])
+    build = (pg.build_sharded_sheet_gallery_coded if case.get("coded")
+             else pg.build_sharded_sheet_gallery)
+    gal = build(mesh, params, cfg, case["strips"])
     query = pg.make_sharded_piece_query(
         mesh, params, cfg, gal, gal.ids, len(case["strips"]),
         n_candidates=case["n_candidates"], n_real=gal.n_real)
@@ -93,13 +98,22 @@ def run_sheet_build(mesh, case):
 def run_audio_build(mesh, case):
     cfg, params = model(case)
     gal = pg.build_sharded_audio_gallery(mesh, params, cfg, case["specs"],
-                                         quantize=case["quantize"])
+                                         quantize=case["quantize"],
+                                         coded=case.get("coded", False))
     out = gallery_out(gal)
     if case.get("strips"):
         query = pg.make_sharded_sheet_query(
             mesh, params, cfg, gal, gal.ids, len(case["specs"]),
             n_candidates=case["n_candidates"], coding="raw")
         out["counts"] = [query(s, st).numpy() for s, st in case["strips"]]
+        out["counts_rle2"] = []
+        for s, st in case["strips"]:
+            query = pg.make_sharded_sheet_query(
+                mesh, params, cfg, gal, gal.ids, len(case["specs"]),
+                n_candidates=case["n_candidates"], strip_shape=s.shape,
+                block_k=(32, 64))
+            out["counts_rle2"].append(query(
+                *win.rle_bitmap2_encode_strip(s), st).numpy())
     return out
 
 
@@ -121,13 +135,12 @@ def mesh_facts(mesh, world):
 
 
 def main():
-    rank, world, port = (int(a) for a in sys.argv[1:4])
+    rank, world, init = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     data, db, outdir = int(sys.argv[4]), int(sys.argv[5]), sys.argv[6]
     torch.set_num_threads(1)
     import torch.distributed as dist
 
-    pm.make_mesh("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                 world_size=world)
+    pm.make_mesh("gloo", init_method=init, rank=rank, world_size=world)
     try:
         mesh = pm.make_hybrid_mesh((1, db), (data, 1), device="cpu")
         with open(os.path.join(outdir, "cases.pkl"), "rb") as fp:
