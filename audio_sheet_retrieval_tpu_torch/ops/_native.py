@@ -54,11 +54,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "dtw_barrier_rounds": ([_I, _I, _P, _P], _I),
     },
     "rans": {
-        # freqs, states, words, P, S, W, n, K, g, threads, out, stream
-        "rans_decode": ([_P] * 3 + [_I] * 7 + [_P, _P], _I),
-        # data, freqs, n, S, K, g, threads, pad_sym, w_budget, scratch,
-        # states, words, n_words, stream
-        "rans_encode": ([_P, _P] + [_I] * 7 + [_P] * 5, _I),
+        # freqs, states, words, P, S, W, n, K, g, threads, ring_words,
+        # chunk, smem_bytes, out, stream
+        "rans_decode": ([_P] * 3 + [_I] * 10 + [_P, _P], _I),
+        # data, freqs, n, S, K, pad_sym, w_budget, threads, scan_tile,
+        # cand, masks, offsets, states, words, n_words, stream
+        "rans_encode": ([_P, _P] + [_I] * 7 + [_P] * 7, _I),
     },
 }
 

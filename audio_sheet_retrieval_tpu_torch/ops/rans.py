@@ -20,13 +20,16 @@ Device half: ``rans_decode_batch_device`` (the JAX package's
 ``_decode_batch_jit``, a ``lax.scan`` of ceil(n/S) steps, :411) and
 ``rans_encode_device`` / ``rans_encode_device_tables`` against a static
 table (``_encode_device_jit``, :549). On a CUDA tensor each launches its
-kernel, one CTA a payload; on a CPU tensor it runs its plain version, the
-same step loop on int64 tensors. The card has 64-bit integers, so the
-JAX package's magic-reciprocal division (``encode_magic_tables``,
-``_mulhi32``) is not ported: the encode divides x // f directly, and its
-tables keep a frequency of 4,096 whole (JAX clamps it to 4,095,
-:527). The encode pads ``words`` to exactly ``w_budget`` (JAX's
-``words[:w_budget]`` is short when K*S < w_budget, :582).
+kernel (the decode one CTA a payload, ``decode_plan``; the encode one
+thread a lane, then a scan and a placement of its words, ``encode_plan``);
+on a CPU tensor it runs
+its plain version, the same step loop on int64 tensors. The card has
+64-bit integers, so the JAX package's magic-reciprocal division
+(``encode_magic_tables``, ``_mulhi32``) is not ported: the encode divides
+x // f directly, and its tables keep a frequency of 4,096 whole (JAX
+clamps it to 4,095, :527). The encode pads ``words`` to exactly
+``w_budget`` (JAX's ``words[:w_budget]`` is short when K*S < w_budget,
+:582).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -407,18 +410,97 @@ def rans_decode_batch_plain(freqs: torch.Tensor, states: torch.Tensor,
     return out.permute(1, 0, 2).reshape(P, K * S)[:, :n]
 
 
-def lane_groups(S: int) -> Tuple[int, int]:
-    """(lanes a thread owns, threads a CTA) of the kernels for S lanes: a
-    thread owns G contiguous lanes, G the least power of two <= 16 that
-    keeps a CTA at 256 threads or fewer, and the CTA is a whole number of
-    warps."""
+# The kernels' launch plans, the one source of their sizes: the launches
+# pass them to ``csrc/rans.cu``, which checks them against its own layout
+# and refuses others. The decode runs one CTA a payload, thread t owning
+# the contiguous lanes [t G, t G + G); the encode one thread a lane.
+RING_CHUNKS = 8                 # the decode ring's slots (kRingChunks)
+MAX_SMEM = 232_448              # dynamic shared memory a CTA may have (H100)
+# the decode's shared bytes before its ring (which starts on a 128-byte
+# boundary): the slot table (4,096 u32), cum (257 u32 padded to 1,040 B),
+# the warp sums (2 x 32 i32) and the chunks' mbarriers (8 B each)
+DECODE_FIXED_SMEM = -(-(4 * 4096 + 1040 + 4 * 2 * 32 + 8 * RING_CHUNKS)
+                      // 128) * 128
+ENCODE_THREADS = 128            # the encode's lanes a CTA (kEncThreads)
+ENCODE_SCAN_TILE = 8192         # masks a tile of the encode's scan
+LANE_CHOICES = (1, 2, 4, 8, 16)
+CTA_THREADS = 512               # the widest CTA the default lane count keeps
+CHUNK_MIN_WORDS = 2048          # the decode's smallest bulk copy (4 KB)
+
+
+class DecodePlan(NamedTuple):
+    g: int              # lanes a thread
+    threads: int        # threads a CTA, whole warps
+    ring_words: int     # the word ring, RING_CHUNKS chunks
+    chunk_words: int    # words one bulk copy stages (a power of two >= S)
+    smem_bytes: int     # dynamic shared memory
+
+
+class EncodePlan(NamedTuple):
+    threads: int        # lanes a CTA of the step launch, one a thread
+    ctas: int           # its CTAs, ceil(S / threads)
+    warps_a_step: int   # emission masks a step: the grid's warps
+    scan_tile: int      # masks a tile of the scan
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
+
+
+def _check_lanes(S: int) -> None:
     if not 1 <= S <= MAX_DEVICE_STREAMS:
         raise ValueError(f"the kernels take 1 to {MAX_DEVICE_STREAMS} "
                          f"lanes, got {S}")
-    g = 1
-    while -(-S // g) > 256:
-        g *= 2
-    return g, -(-(-(-S // g)) // 32) * 32
+
+
+def decode_plan(S: int, g: Optional[int] = None) -> DecodePlan:
+    """The decode kernel's launch for S lanes. ``g``: lanes a thread
+    (default: the least power of two <= 16 that keeps the CTA at
+    ``CTA_THREADS`` threads or fewer); the CTA is the whole warps that
+    cover S lanes, at most 1,024. A step consumes at most S words, so a
+    chunk holds at least S (and at least CHUNK_MIN_WORDS: each bulk copy
+    holds up thread 0, and with it the step, for a few hundred cycles)
+    and the ring's RING_CHUNKS chunks run up to six chunks ahead of the
+    words a step may read (``decode_chunks_staged``)."""
+    _check_lanes(S)
+    if g is None:
+        g = 1
+        while -(-S // g) > CTA_THREADS:
+            g *= 2
+    threads = -(-(-(-S // g)) // 32) * 32
+    if g not in LANE_CHOICES or threads > 1024:
+        raise ValueError(f"{g} lanes a thread do not cover {S} lanes in "
+                         "1,024 threads")
+    chunk = max(CHUNK_MIN_WORDS, _pow2_at_least(S))
+    ring = RING_CHUNKS * chunk
+    return DecodePlan(g, threads, ring, chunk, 2 * ring + DECODE_FIXED_SMEM)
+
+
+def decode_chunks_staged(plan: DecodePlan, W: int, offset: int,
+                         base: int) -> int:
+    """How many chunks of a row's ring the decode kernel has issued once
+    the step whose base is ``base`` has passed its barrier: thread 0's
+    rule in ``csrc/rans.cu``. ``offset``: the words between the 16-byte
+    boundary at or below the row's start and the row ((p W) % 8 for row
+    p; the ring's word v is the row's word v - offset). Every read of the
+    earlier steps is done there, so the chunks wholly below base + offset
+    are free, and the ring may run RING_CHUNKS chunks past the first one a
+    step can still read (a clipped read, index W - 1, lies in the last
+    chunk, which nothing replaces). Before step 0: ``base`` = 0."""
+    n_chunks = -(-(offset + W) // plan.chunk_words)
+    return min(n_chunks, RING_CHUNKS + (base + offset) // plan.chunk_words)
+
+
+def encode_plan(S: int) -> EncodePlan:
+    """The encode's step launch for S lanes: one thread a lane (a lane's
+    chain needs no other lane), so a step's emissions are one ballot mask
+    a warp of the grid (a warp of padding lanes stores a zero mask); the
+    scan and the placement of the words read the masks in (step, warp)
+    order, the decoder's."""
+    _check_lanes(S)
+    ctas = -(-S // ENCODE_THREADS)
+    return EncodePlan(ENCODE_THREADS, ctas, ctas * ENCODE_THREADS // 32,
+                      ENCODE_SCAN_TILE)
 
 
 def _check_cuda(*ts) -> None:
@@ -431,10 +513,13 @@ def _check_cuda(*ts) -> None:
 
 
 def rans_decode_kernel(freqs: torch.Tensor, states: torch.Tensor,
-                       words: torch.Tensor, n: int) -> torch.Tensor:
+                       words: torch.Tensor, n: int, *,
+                       _lanes: Optional[int] = None) -> torch.Tensor:
     """The decode kernel (``csrc/rans.cu``): freqs [P, 256] int16 bits,
     states [P, S] int32 bits, words [P, W >= 1] int16 bits, all on one
-    CUDA device -> uint8 [P, n]. One CTA a payload."""
+    CUDA device -> uint8 [P, n]. One CTA a payload, launched by
+    ``decode_plan(S)`` (``_lanes``: another lane count a thread, for the
+    scripts' sweeps and checks)."""
     _check_cuda(freqs, states, words)
     P, S = states.shape
     if freqs.shape != (P, 256) or words.dim() != 2 or words.shape[0] != P \
@@ -447,12 +532,15 @@ def rans_decode_kernel(freqs: torch.Tensor, states: torch.Tensor,
                         "int16 bits")
     if n < 1 or P * n >= 2 ** 31 or P * words.shape[1] >= 2 ** 31:
         raise ValueError(f"n={n}, P={P}, W={words.shape[1]} out of range")
-    g, threads = lane_groups(S)
+    plan = decode_plan(S, _lanes)
+    if words.data_ptr() % 16:  # bulk copies read 16-byte-aligned rows
+        words = words.clone()   # (the caching allocator aligns blocks)
     out = torch.empty((P, n), dtype=torch.uint8, device=states.device)
     lib = _native.load("rans")
     err = lib.rans_decode(
         freqs.data_ptr(), states.data_ptr(), words.data_ptr(), P, S,
-        words.shape[1], n, -(-n // S), g, threads, out.data_ptr(),
+        words.shape[1], n, -(-n // S), plan.g, plan.threads,
+        plan.ring_words, plan.chunk_words, plan.smem_bytes, out.data_ptr(),
         torch.cuda.current_stream(states.device).cuda_stream)
     _native.check(err, "rans_decode")
     rans_decode_kernel.launches += 1
@@ -531,7 +619,10 @@ def rans_encode_kernel(data: torch.Tensor, freqs: torch.Tensor, S: int,
                        w_budget: int, pad_sym: int):
     """The encode kernel (``csrc/rans.cu``): data [n] uint8 and freqs
     [256] int16 bits on one CUDA device -> (states int32 bits [S], words
-    int16 bits [w_budget], n_words int32 0-d). One CTA."""
+    int16 bits [w_budget], n_words int32 0-d). Three grid-wide launches on
+    the stream, no host sync between them (``encode_plan(S)``): every
+    lane's steps with its candidate words and the warps' emission masks,
+    the scan of the masks, the placement of the words."""
     _check_cuda(data, freqs)
     if data.dtype != torch.uint8 or data.dim() != 1 or data.numel() < 1:
         raise TypeError(f"data must be a non-empty 1-D uint8 tensor, got "
@@ -541,20 +632,25 @@ def rans_encode_kernel(data: torch.Tensor, freqs: torch.Tensor, S: int,
                         f"{tuple(freqs.shape)}")
     n = data.shape[0]
     K = -(-n // S)
-    if K * S >= 2 ** 31 or not 0 <= pad_sym < 256 or w_budget < 0:
+    plan = encode_plan(S)
+    masks = K * plan.warps_a_step
+    if 32 * masks >= 2 ** 31 or not 0 <= pad_sym < 256 or w_budget < 0:
         raise ValueError(f"n={n}, S={S}, pad_sym={pad_sym}, "
                          f"w_budget={w_budget} out of range")
-    g, threads = lane_groups(S)
     dev = data.device
-    scratch = torch.empty(K * S, dtype=torch.int16, device=dev)
+    cand = torch.empty(32 * masks, dtype=torch.int16, device=dev)
+    ballots = torch.empty(masks, dtype=torch.int32, device=dev)
+    offsets = torch.empty(masks, dtype=torch.int32, device=dev)
     states = torch.empty(S, dtype=torch.int32, device=dev)
     words = torch.empty(w_budget, dtype=torch.int16, device=dev)
     n_words = torch.empty((), dtype=torch.int32, device=dev)
     lib = _native.load("rans")
     err = lib.rans_encode(
-        data.data_ptr(), freqs.data_ptr(), n, S, K, g, threads, pad_sym,
-        w_budget, scratch.data_ptr(), states.data_ptr(), words.data_ptr(),
-        n_words.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        data.data_ptr(), freqs.data_ptr(), n, S, K, pad_sym, w_budget,
+        plan.threads, plan.scan_tile, cand.data_ptr(), ballots.data_ptr(),
+        offsets.data_ptr(), states.data_ptr(), words.data_ptr(),
+        n_words.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _native.check(err, "rans_encode")
     rans_encode_kernel.launches += 1
     return states, words, n_words

@@ -233,9 +233,17 @@ exits non-zero):
    constant rows (no words) and a one-symbol table of frequency 4,096; the
    encode at the tutorial page's system map plane (its static table and
    budget), K S < w_budget, an overflowing budget and the 4,096 table;
-   event times and back-to-back (queued) times beside the plain versions'
-   and the bound (the bytes at 3.35 TB/s or the steps times one barrier
-   round, the larger),
+   the cases the staged design can get wrong: words many times the
+   decode's shared-memory ring (10^6 uniform bytes, S = 4,096, 16 lanes a
+   thread), steps in which every lane consumes, S = 200, 60 payloads at
+   S = 128 and 2 lanes a thread, n not a multiple of S, an encode whose
+   emission masks span several tiles of its scan, one whose words fill
+   the budget exactly, one in which every lane emits; event times and
+   back-to-back (queued) times beside the plain versions' and the bound
+   (the bytes at 3.35 TB/s or the steps times one barrier round of the
+   narrowest CTA that holds S lanes at 16 a thread, the larger), the
+   microseconds a step beside that barrier round, the
+   encode's steps and scan apart from the placement of its words,
    the host encode times (numpy and native). b. the sheet wire: each
    strip through the rle2 embedder against the raw one on the padded
    strip, exact and fullconv, bit for bit; the corpus decode's strips; the
@@ -3972,12 +3980,21 @@ BARRIER_ROUNDS = 10_000   # rounds a barrier measurement times (the launch's
                           # own microseconds spread over them)
 
 
+def rans_bound_threads(S: int) -> int:
+    """The CTA width whose barrier round floors a step of S lanes: the
+    narrowest whole warps that hold S lanes at 16 lanes a thread (the
+    most a kernel's thread runs), from the function's inputs alone, not
+    from the width a kernel's plan chooses."""
+    return -(-(-(-S // 16)) // 32) * 32
+
+
 def rans_bound(torch, nbytes: float, steps: int, threads: int):
     """-> (bound ms, "bytes" or "operations", bytes ms, barrier floor ms,
     one barrier round ns) of a rANS kernel: its bytes (each input read
     once, each output written once) at the memory rate against its
     ``steps`` dependent steps, each at least one CTA-wide barrier round of
-    ``threads`` threads (``dtw_barrier_rounds``, the DTW row's floor)."""
+    ``threads`` threads (``dtw_barrier_rounds``, the DTW row's floor;
+    ``rans_bound_threads(S)`` for S lanes)."""
     from audio_sheet_retrieval_tpu_torch.ops import _native
 
     lib = _native.load("dtw")
@@ -3994,11 +4011,13 @@ def rans_bound(torch, nbytes: float, steps: int, threads: int):
 
 
 def check_decode_kernel(torch, name, freqs, states, words, n,
-                        want=None, time_it=False) -> dict:
+                        want=None, time_it=False, lanes=None) -> dict:
     """18a: the decode kernel on ``(freqs, states, words)`` against its
     plain version and the native host decoder, bit for bit (and against
-    ``want``, the coded rows, where given); its times at the path's
-    shapes."""
+    ``want``, the coded rows, where given); ``lanes``: the lanes a thread
+    (default: ``decode_plan``'s); its times at the path's shapes, and the
+    microseconds a step beside one barrier round of the bound's width
+    (``rans_bound_threads``)."""
     from audio_sheet_retrieval_tpu_torch.ops import rans
 
     dev = torch.device("cuda")
@@ -4007,7 +4026,10 @@ def check_decode_kernel(torch, name, freqs, states, words, n,
     s = rans._bits(states, torch.int32, dev)
     w = rans._bits(words if words.shape[1] else np.zeros(
         (states.shape[0], 1), np.uint16), torch.int16, dev)
-    got = rans.rans_decode_kernel(f, s, w, n)
+    def kernel():
+        return rans.rans_decode_kernel(f, s, w, n, _lanes=lanes)
+
+    got = kernel()
     plain = rans.rans_decode_batch_plain(rans._wide(f), rans._wide(s),
                                          rans._wide(w), n)
     assert torch.equal(got, plain), f"18a decode {name}: kernel != plain"
@@ -4018,23 +4040,25 @@ def check_decode_kernel(torch, name, freqs, states, words, n,
     if want is not None:
         assert np.array_equal(got_h, want), f"18a decode {name}: != data"
     P, S = states.shape
+    plan = rans.decode_plan(S, lanes)
     row = dict(case=name, P=P, n=n, S=S, K=-(-n // S),
-               w_max=int(words.shape[1]), max_abs_err=0)
+               w_max=int(words.shape[1]), lanes_a_thread=plan.g,
+               threads=plan.threads, max_abs_err=0)
     if time_it:
-        g, threads = rans.lane_groups(S)
+        K = -(-n // S)
         nbytes = 2 * words.size + 4 * states.size + 2 * freqs.size + P * n
-        b = rans_bound(torch, nbytes, -(-n // S), threads)
+        b = rans_bound(torch, nbytes, K, rans_bound_threads(S))
+        # back to back between two events: the device's time (the
+        # profiler records none of these ctypes launches on the card)
+        q = queued_ms(kernel)
         row.update(
-            ms=cuda_ms(lambda: rans.rans_decode_kernel(f, s, w, n)),
+            ms=cuda_ms(kernel),
             plain_ms=cuda_ms(lambda: rans.rans_decode_batch_plain(
                 rans._wide(f), rans._wide(s), rans._wide(w), n),
                 iters=WIRE_PLAIN_ITERS, warmup=1),
-            # back to back between two events: the device's time (the
-            # profiler records none of these ctypes launches on the card)
-            queued_ms=queued_ms(lambda: rans.rans_decode_kernel(f, s, w, n)),
+            queued_ms=q, us_a_step=q * 1e3 / K,
             bound_ms=b[0], bound_by=b[1], bytes_ms=b[2],
-            barrier_floor_ms=b[3], barrier_round_ns=b[4],
-            library_ms=None, lanes_a_thread=g, threads=threads)
+            barrier_floor_ms=b[3], barrier_round_ns=b[4], library_ms=None)
     emit("wire", check="a. decode kernel vs plain", **row)
     return row
 
@@ -4043,7 +4067,9 @@ def check_encode_kernel(torch, name, data: np.ndarray, freqs: np.ndarray,
                         S: int, w_budget: int, time_it=False) -> dict:
     """18a: the encode kernel against its plain version, bit for bit
     (states, words padded to w_budget, the true n_words), and against the
-    numpy encoder ``rans_encode(..., freqs=...)``."""
+    numpy encoder ``rans_encode(..., freqs=...)``; timed, also with
+    w_budget = 0 (the lanes' steps and the scan of their emissions alone:
+    nothing to place), so the placement of the words is the difference."""
     from audio_sheet_retrieval_tpu_torch.ops import rans
 
     dev = torch.device("cuda")
@@ -4063,23 +4089,28 @@ def check_encode_kernel(torch, name, data: np.ndarray, freqs: np.ndarray,
         and int(nw) == w_h.size and np.array_equal(words[:m], w_h[:m]) \
         and not words[m:].any(), f"18a encode {name}: != numpy encoder"
     n = data.size
+    plan = rans.encode_plan(S)
     row = dict(case=name, n=n, S=S, K=-(-n // S), w_budget=w_budget,
-               n_words=int(nw), overflow=int(nw) > w_budget, max_abs_err=0)
+               n_words=int(nw), overflow=int(nw) > w_budget,
+               lanes_a_thread=1, threads=plan.threads, ctas=plan.ctas,
+               max_abs_err=0)
     if time_it:
-        g, threads = rans.lane_groups(S)
+        K = -(-n // S)
         nbytes = n + 2 * 256 + 4 * S + 2 * w_budget + 4
-        b = rans_bound(torch, nbytes, -(-n // S), threads)
+        b = rans_bound(torch, nbytes, K, rans_bound_threads(S))
+        q = queued_ms(lambda: rans.rans_encode_kernel(d, f, S, w_budget,
+                                                      pad))
+        loop_q = queued_ms(lambda: rans.rans_encode_kernel(d, f, S, 0, pad))
         row.update(
             ms=cuda_ms(lambda: rans.rans_encode_kernel(d, f, S, w_budget,
                                                        pad)),
             plain_ms=cuda_ms(lambda: rans.rans_encode_plain(
                 d.to(torch.int64), rans._wide(f), S, w_budget, pad),
                 iters=WIRE_PLAIN_ITERS, warmup=1),
-            queued_ms=queued_ms(lambda: rans.rans_encode_kernel(
-                d, f, S, w_budget, pad)),
+            queued_ms=q, loop_queued_ms=loop_q, tail_queued_ms=q - loop_q,
+            us_a_step=loop_q * 1e3 / K,
             bound_ms=b[0], bound_by=b[1], bytes_ms=b[2],
-            barrier_floor_ms=b[3], barrier_round_ns=b[4],
-            library_ms=None, lanes_a_thread=g, threads=threads)
+            barrier_floor_ms=b[3], barrier_round_ns=b[4], library_ms=None)
     emit("wire", check="a. encode kernel vs plain", **row)
     return row
 
@@ -4212,7 +4243,58 @@ def wire_kernels(torch, ctx) -> dict:
     check_encode_kernel(torch, "K_S_below_budget", plane[:300], sfreqs, 128,
                         1024)
     check_encode_kernel(torch, "overflow", plane, sfreqs, 2048, 64)
+    wire_ring_cases(torch, rng)
     return out
+
+
+def all_lanes_alike(rng, n: int, S: int) -> np.ndarray:
+    """n bytes in which every lane of S codes one sequence of rare
+    symbols: the lanes' states stay equal, so a step that consumes (or
+    emits) a word does so in every lane."""
+    seq = np.where(rng.random(-(-n // S)) < 0.9,
+                   rng.integers(1, 256, -(-n // S)), 0).astype(np.uint8)
+    return np.repeat(seq, S)[:n]
+
+
+def wire_ring_cases(torch, rng) -> None:
+    """18a, the cases the staged design can get wrong, each bit for bit
+    against the plain version and the native decoder / numpy encoder:
+    words many times the decode's ring (10^6 uniform bytes at S = 4,096,
+    16 lanes a thread), steps in which every lane consumes, S not a
+    multiple of 32, 60 payloads at S = 128 and 2 lanes a thread, n not a
+    multiple of S; an encode whose emission masks span several tiles of
+    its scan (and its words many CTAs of the placement), one whose words
+    fill the budget exactly, and one in which every lane emits."""
+    from audio_sheet_retrieval_tpu_torch.ops import rans
+
+    def decode(name, arrays, S, lanes=None):
+        f, s, w, _ = rans.rans_encode_batch(arrays, S)
+        check_decode_kernel(torch, name, f, s, w, arrays[0].size,
+                            want=np.stack(arrays), lanes=lanes)
+
+    decode("ring_many_times_S4096_G16",
+           [rng.integers(0, 256, 1_000_000, dtype=np.uint8)], 4096, 16)
+    decode("all_lanes_consume",
+           [all_lanes_alike(rng, 60_000, 2048) for _ in range(2)], 2048)
+    decode("S_200", [np.minimum(rng.geometric(0.3, 7777) - 1, 255)
+                     .astype(np.uint8) for _ in range(5)], 200)
+    decode("P60_S128_G2", [np.minimum(rng.geometric(0.4, 3000) - 1, 255)
+                           .astype(np.uint8) for _ in range(60)], 128, 2)
+    decode("n_not_a_multiple_of_S",
+           [rng.integers(0, 256, 3001, dtype=np.uint8) for _ in range(3)],
+           128)
+    data = rng.integers(0, 256, 1_000_001, dtype=np.uint8)
+    freqs = rans.quantize_freqs(np.bincount(data, minlength=256))
+    check_encode_kernel(torch, "S_200", data[:50_000], freqs, 200, 30_000)
+    row = check_encode_kernel(torch, "many_scan_tiles", data, freqs, 2048,
+                              600_000)
+    plan = rans.encode_plan(2048)
+    assert row["K"] * plan.warps_a_step > 2 * plan.scan_tile, row
+    check_encode_kernel(torch, "budget_equals_n_words", data, freqs, 2048,
+                        row["n_words"])
+    check_encode_kernel(torch, "all_lanes_emit",
+                        all_lanes_alike(rng, 60_000, 2048),
+                        rans.quantize_freqs(np.ones(256)), 2048, 60_000)
 
 
 def wire_sheet(torch, ctx) -> dict:

@@ -8,12 +8,16 @@ shapes; print each case's kernel and plain times.
 Decode: P payloads of n bytes at S lanes (the sheet corpus's level-2
 bitmaps, 60 x 25,600 B at S = 128; its run values; the spectrogram
 corpus, 60 x 158,240 B at S = 256; a page's 8 plane segments of 246,534 B
-at S = 2,048), n < S, constant rows (no words), a truncated row, S = 4,096.
-Encode: one map plane of 986,135 B at S = 2,048 against a static table,
-K S < w_budget, an overflowing budget, a single-symbol table of frequency
-4,096. Each payload is also decoded by the native host decoder. One JSON
-line a case, then the card's name and power limit; ``--quick`` runs the
-small cases only. Exits non-zero on any mismatch, or without a card.
+at S = 2,048), n < S, constant rows (no words), a truncated row, S = 4,096,
+S = 200 (not a multiple of 32), a step in which every lane consumes, and
+10^6 uniform bytes at S = 4,096 and 16 lanes a thread (words many times
+the ring). Encode: one map plane of 986,135 B at S = 2,048 against a
+static table, K S < w_budget, an overflowing budget, a single-symbol table
+of frequency 4,096, S = 200, emissions over several tiles of the scan, a
+budget of exactly n_words. Each payload is also decoded by the native
+host decoder. One JSON line a case, then the card's name and power limit;
+``--quick`` runs the small cases only. Exits non-zero on any mismatch, or
+without a card.
 """
 
 from __future__ import annotations
@@ -48,8 +52,16 @@ def event_ms(torch, fn, iters):
     return a.elapsed_time(b) / iters
 
 
+def all_consume(rng, n, S):
+    """Every lane codes one rare-symbol sequence: equal states, so a step
+    that consumes, consumes in every lane."""
+    seq = np.where(rng.random(-(-n // S)) < 0.9,
+                   rng.integers(1, 256, -(-n // S)), 0).astype(np.uint8)
+    return np.repeat(seq, S)[:n]
+
+
 def check_decode(torch, rans, name, arrays, S, words_pad=0, cut=None,
-                 iters=20):
+                 iters=20, lanes=None):
     dev = torch.device("cuda")
     n = arrays[0].size
     freqs, states, words, n_words = rans.rans_encode_batch(arrays, S)
@@ -62,8 +74,11 @@ def check_decode(torch, rans, name, arrays, S, words_pad=0, cut=None,
     w = rans._bits(words if words.shape[1] else np.zeros((len(arrays), 1),
                                                          np.uint16),
                    torch.int16, dev)
+    def kernel():
+        return rans.rans_decode_kernel(f, s, w, n, _lanes=lanes)
+
     t0 = time.perf_counter()
-    got = rans.rans_decode_kernel(f, s, w, n)
+    got = kernel()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     plain = rans.rans_decode_batch_plain(rans._wide(f), rans._wide(s),
@@ -77,10 +92,10 @@ def check_decode(torch, rans, name, arrays, S, words_pad=0, cut=None,
                                                    np.stack(arrays)))
     row = dict(case=name, op="decode", P=len(arrays), n=n, S=S,
                K=-(-n // S), w_max=int(words.shape[1]),
+               plan=rans.decode_plan(S, lanes)._asdict(),
                equal_plain=same, equal_native_host=same_host,
                equal_data=exact, first_call_s=first_s,
-               ms=event_ms(torch, lambda: rans.rans_decode_kernel(f, s, w, n),
-                           iters),
+               ms=event_ms(torch, kernel, iters),
                plain_ms=event_ms(torch, lambda: rans.rans_decode_batch_plain(
                    rans._wide(f), rans._wide(s), rans._wide(w), n), 1))
     print(json.dumps(row), flush=True)
@@ -93,7 +108,11 @@ def check_encode(torch, rans, name, data, freqs, S, w_budget, iters=20):
     d = torch.from_numpy(data).to(dev)
     f = rans._bits(freqs, torch.int16, dev)
     pad = int(np.argmax(freqs))
-    st, w, nw = rans.rans_encode_kernel(d, f, S, w_budget, pad)
+
+    def kernel():
+        return rans.rans_encode_kernel(d, f, S, w_budget, pad)
+
+    st, w, nw = kernel()
     torch.cuda.synchronize()
     pst, pw, pnw = rans.rans_encode_plain(d.to(torch.int64), rans._wide(f),
                                           S, w_budget, pad)
@@ -106,10 +125,10 @@ def check_encode(torch, rans, name, data, freqs, S, w_budget, iters=20):
                   and np.array_equal(rans._wide(w).cpu().numpy()[:m],
                                      w_h[:m]))
     row = dict(case=name, op="encode", n=n, S=S, K=-(-n // S),
-               w_budget=w_budget, n_words=int(nw), equal_plain=same,
+               w_budget=w_budget, n_words=int(nw),
+               plan=rans.encode_plan(S)._asdict(), equal_plain=same,
                equal_numpy_encoder=bool(same_numpy),
-               ms=event_ms(torch, lambda: rans.rans_encode_kernel(
-                   d, f, S, w_budget, pad), iters),
+               ms=event_ms(torch, kernel, iters),
                plain_ms=event_ms(torch, lambda: rans.rans_encode_plain(
                    d.to(torch.int64), rans._wide(f), S, w_budget, pad), 1))
     print(json.dumps(row), flush=True)
@@ -158,6 +177,29 @@ def main(argv=None) -> int:
     one[9] = 4096
     ok.append(check_encode(torch, rans, "freq_4096",
                            np.full(1000, 9, np.uint8), one, 128, 64))
+    ok.append(check_decode(torch, rans, "S_200", [skewed(rng, 7777)
+                                                   for _ in range(5)], 200))
+    ok.append(check_decode(torch, rans, "all_lanes_consume",
+                           [all_consume(rng, 60_000, 2048)
+                            for _ in range(2)], 2048))
+    ok.append(check_decode(torch, rans, "P60_S128_G2",
+                           [skewed(rng, 3000, 0.4) for _ in range(60)], 128,
+                           lanes=2))
+    ok.append(check_decode(torch, rans, "ring_many_times_S4096_G16",
+                           [rng.integers(0, 256, 1_000_000, dtype=np.uint8)],
+                           4096, lanes=16, iters=5))
+    many = rng.integers(0, 256, 1_000_001, dtype=np.uint8)
+    fm = rans.quantize_freqs(np.bincount(many, minlength=256))
+    ok.append(check_encode(torch, rans, "S_200", map_plane[:50_000], freqs,
+                           200, 30_000))
+    ok.append(check_encode(torch, rans, "many_scan_tiles", many, fm, 2048,
+                           600_000, iters=5))
+    nw = rans.rans_encode(many, 2048, freqs=fm)[2].size
+    ok.append(check_encode(torch, rans, "budget_equals_n_words", many, fm,
+                           2048, nw, iters=5))
+    ok.append(check_encode(torch, rans, "all_lanes_emit",
+                           all_consume(rng, 60_000, 2048),
+                           rans.quantize_freqs(np.ones(256)), 2048, 60_000))
     if not args.quick:
         ok.append(check_decode(torch, rans, "sheet_bm2",
                                [skewed(rng, 25_600, 0.8) for _ in range(60)],

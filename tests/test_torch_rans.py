@@ -262,15 +262,234 @@ def test_a_frequency_of_4096_round_trips(sym):
 
 
 def test_lane_groups():
-    """A thread owns G contiguous lanes, the CTA a whole number of warps
-    of at most 256 threads."""
+    """The decode's lane groups (``decode_plan``): a thread owns G
+    contiguous lanes, the CTA a whole number of warps; by default G is the
+    least power of two that keeps the CTA at CTA_THREADS threads or fewer
+    (the sweep's choice, PERF.md), and an explicit G takes as many warps
+    as cover S, at most 1,024."""
     for S in (1, 31, 64, 128, 200, 256, 257, 1000, 2048, 4096):
-        g, threads = tr.lane_groups(S)
-        assert g in (1, 2, 4, 8, 16) and threads % 32 == 0
-        assert threads <= 256 and threads * g >= S
+        g, threads = tr.decode_plan(S)[:2]
+        assert g in tr.LANE_CHOICES and threads % 32 == 0
+        assert threads <= tr.CTA_THREADS and threads * g >= S
         assert (threads - 32) * g < S or g == 1
-    with pytest.raises(ValueError):
-        tr.lane_groups(4097)
+        assert g == 1 or -(-S // (g // 2)) > tr.CTA_THREADS
+    assert tr.decode_plan(2048, 2)[:2] == (2, 1024)
+    assert tr.decode_plan(256, 2)[:2] == (2, 128)
+    for S, g in ((4096, 2), (2048, 1), (128, 3)):
+        with pytest.raises(ValueError):
+            tr.decode_plan(S, g)
+    for plan in (tr.decode_plan, tr.encode_plan):
+        with pytest.raises(ValueError):
+            plan(4097)
+
+
+@pytest.mark.parametrize("kind", ["decode", "encode"])
+def test_plans_at_every_lane_count(kind):
+    """Every S from 1 to 4,096. Decode, at every G that covers S: whole
+    warps, at most 1,024 threads, G threads >= S, the dynamic shared
+    memory within the H100's 232,448 bytes, and a ring that holds the S
+    words a step may consume plus the chunks in flight (chunk >= S, and
+    enough slots that a step's words were issued a step earlier:
+    ``test_decode_prefetch_schedule``). Encode: one thread a lane in whole
+    warps, every lane covered, a step's masks the warps that hold S."""
+    for S in range(1, tr.MAX_DEVICE_STREAMS + 1):
+        if kind == "encode":
+            plan = tr.encode_plan(S)
+            assert plan.threads % 32 == 0
+            assert plan.ctas * plan.threads == 32 * plan.warps_a_step >= S
+            assert (plan.ctas - 1) * plan.threads < S
+            continue
+        for g in (None,) + tr.LANE_CHOICES:
+            if g is not None and -(-S // g) > 1024:
+                continue
+            plan = tr.decode_plan(S, g)
+            assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+            assert plan.g * plan.threads >= S
+            assert plan.smem_bytes <= tr.MAX_SMEM
+            ring, c = plan.ring_words, plan.chunk_words
+            assert ring & (ring - 1) == 0 and c & (c - 1) == 0
+            assert c >= max(S, 8) and ring == tr.RING_CHUNKS * c
+            assert tr.RING_CHUNKS >= 2 + (c + 2 * S - 2) // c
+            assert plan.smem_bytes == 2 * ring + tr.DECODE_FIXED_SMEM
+
+
+def payload(kind, rng, n, S):
+    """Payloads that load the word ring differently: ``random`` (uniform
+    bytes, about half a word a lane a step), ``ties`` (mostly one symbol:
+    most steps consume nothing, then many lanes at once), ``all_consume``
+    (every lane codes the same rare-symbol sequence, so every lane's state
+    is the same and a step that consumes, consumes in every lane)."""
+    if kind == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    if kind == "ties":
+        return maplike(rng, n)
+    seq = np.where(rng.random(-(-n // S)) < 0.9,
+                   rng.integers(1, 256, -(-n // S)), 0).astype(np.uint8)
+    return np.repeat(seq, S)[:n]
+
+
+def decode_trace(freqs, states, words, n):
+    """Each row's (base, total) at every step of the plain decode (the
+    numpy reference's loop over [P, S] lanes)."""
+    P, S = states.shape
+    K = -(-n // S)
+    W = words.shape[1]
+    f = freqs.astype(np.int64)
+    ends = np.cumsum(f, axis=1)
+    x = states.astype(np.int64)
+    base = np.zeros(P, np.int64)
+    trace = np.zeros((K, P, 2), np.int64)
+    rows = np.arange(P)[:, None]
+    for t in range(K):
+        slot = x & (tr.PROB_SCALE - 1)
+        sym = np.minimum(np.stack([np.searchsorted(ends[p], slot[p], "right")
+                                   for p in range(P)]), 255)
+        x = f[rows, sym] * (x >> tr.PROB_BITS) + slot - (ends - f)[rows, sym]
+        consume = x < tr.RANS_L
+        idx = np.minimum(base[:, None] + np.cumsum(consume, axis=1) - 1,
+                         W - 1)
+        x = np.where(consume, (x << 16) | words[rows, idx].astype(np.int64),
+                     x)
+        trace[t, :, 0] = base
+        trace[t, :, 1] = consume.sum(axis=1)
+        base = base + consume.sum(axis=1)
+    return trace
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "all_consume"])
+@pytest.mark.parametrize("S,g", [(128, None), (200, None), (256, 2),
+                                 (2048, None), (2048, 2), (4096, None)])
+def test_decode_prefetch_schedule(kind, S, g):
+    """Replay the decode kernel's ring (thread 0's issue rule,
+    ``decode_chunks_staged``) over the plain decode's per-step base and
+    total, rows of unaligned offsets included: every word a step reads was
+    staged in an earlier step (so the plain loads past the last 16-byte
+    boundary are ordered by a barrier, and the mbarrier has a copy to wait
+    for), no chunk's slot is refilled while a step still reads it, and the
+    ring's words are the row's (the clip to W - 1 included). This checks
+    the plan and its Python model of the schedule, not the CUDA code: the
+    kernel itself is held to the plain decode on the card (chip_smoke.py
+    phase 18a, scripts/torch_rans_check.py)."""
+    rng = np.random.default_rng(S + (g or 0) + len(kind))
+    n = max(64 * S, 120_000) + 5
+    arrays = [payload(kind, rng, n, S) for _ in range(3)]
+    freqs, states, words, n_words = tr.rans_encode_batch(arrays, S)
+    # padded to W = 3 (mod 8): rows 1 and 2 start off 16-byte boundaries
+    words = np.pad(words, ((0, 0), (0, (3 - words.shape[1]) % 8)))
+    cut = words.copy()
+    cut[1, n_words[1] // 3:] = 0  # a truncated row: clipped reads
+    plan = tr.decode_plan(S, g)
+    for wr, check_data in ((words, True), (cut[:, :n_words.max() - 5],
+                                           False)):
+        trace = decode_trace(freqs, states, wr, n)
+        P, W = wr.shape
+        flat = wr.reshape(-1)
+        if check_data:
+            assert trace[:, :, 1].sum(axis=0).tolist() == n_words.tolist()
+        C, R = plan.chunk_words, plan.ring_words
+        for p in range(P):
+            o = (p * W) % 8   # the row's start past a 16-byte boundary
+            row0 = p * W - o
+            ring = np.full(R, -1, np.int64)
+            slot_of = np.full(tr.RING_CHUNKS, -1)
+
+            def stage(q):
+                v = np.arange(q * C, min((q + 1) * C, o + W))
+                ring[v & (R - 1)] = flat[row0 + v]
+                slot_of[q % tr.RING_CHUNKS] = q
+
+            issued = tr.decode_chunks_staged(plan, W, o, 0)
+            for q in range(issued):
+                stage(q)
+            for t in range(trace.shape[0]):
+                base, total = (int(v) for v in trace[t, p])
+                earlier = issued
+                now = max(issued, tr.decode_chunks_staged(plan, W, o, base))
+                for q in range(issued, now):
+                    stage(q)
+                issued = now
+                if not total:
+                    continue
+                j = np.minimum(base + np.arange(total), W - 1)
+                chunks = np.unique((j + o) // C)
+                assert chunks.max() < earlier, (p, t)
+                assert all(slot_of[q % tr.RING_CHUNKS] == q for q in chunks)
+                assert all(q + tr.RING_CHUNKS >= issued for q in chunks)
+                np.testing.assert_array_equal(ring[(j + o) & (R - 1)],
+                                              wr[p, j])
+            if check_data and kind != "ties":   # the ring was refilled
+                assert issued > tr.RING_CHUNKS, issued
+
+
+def encode_lanes(data, freqs, S):
+    """The plain encode's emissions lane by lane, as the encode kernel's
+    first launch stores them: (emit [K, 32 W] bool, cand [K, 32 W] int64)
+    over the W warps of its grid (lanes past S never emit)."""
+    n = data.size
+    K = -(-n // S)
+    W = tr.encode_plan(S).warps_a_step
+    lanes = np.full(K * S, int(np.argmax(freqs)), np.int64)
+    lanes[:n] = data
+    lanes = lanes.reshape(K, S)
+    f = freqs.astype(np.int64)
+    f_of = np.where(f == 0, 1, f)
+    c_of = np.cumsum(f) - f
+    x = np.full(S, tr.RANS_L, np.int64)
+    emit = np.zeros((K, 32 * W), bool)
+    cand = np.zeros((K, 32 * W), np.int64)
+    for t in range(K - 1, -1, -1):
+        fs = f_of[lanes[t]]
+        need = x >= (fs << 20)
+        emit[t, :S], cand[t, :S] = need, x & 0xFFFF
+        x = np.where(need, x >> 16, x)
+        x = ((x // fs) << tr.PROB_BITS) + c_of[lanes[t]] + x % fs
+    return emit, cand
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "all_consume"])
+@pytest.mark.parametrize("S,budget", [(128, 60_000), (200, 10_000),
+                                      (2048, 400_000), (100, 64),
+                                      (4096, None)])
+def test_encode_placement(kind, S, budget):
+    """Replay the encode kernel's placement (``encode_plan``) over the
+    plain encode's emissions: the warps' ballot masks in (step, warp)
+    order, the exclusive scan of their popcounts (the one-CTA scan's
+    tiles of ``scan_tile`` masks with their carry), each emitted word at
+    its mask's offset plus the emitting lanes below it, those below
+    w_budget kept, the rest of words zero: equal to the numpy encoder's
+    stream, n_words its length (also past the budget), words exactly
+    w_budget long. This checks the plan and its Python model of the
+    kernel, not the CUDA code: the kernel itself is held to the plain
+    encode on the card (chip_smoke.py phase 18a,
+    scripts/torch_rans_check.py)."""
+    rng = np.random.default_rng(S + len(kind))
+    n = 30 * S + 3
+    data = payload(kind, rng, n, S)
+    freqs = tr.quantize_freqs(np.bincount(data, minlength=256))
+    emit, cand = encode_lanes(data, freqs, S)
+    K, W = emit.shape[0], emit.shape[1] // 32
+    bits = emit.reshape(K * W, 32)
+    masks = (bits * (1 << np.arange(32, dtype=np.int64))).sum(axis=1)
+    counts = np.array([bin(int(m)).count("1") for m in masks])
+    offsets, carry = np.zeros(K * W, np.int64), 0
+    T = tr.encode_plan(S).scan_tile
+    for base in range(0, K * W, T):               # the scan's tiles
+        tile = counts[base:base + T]
+        offsets[base:base + T] = carry + np.cumsum(tile) - tile
+        carry += int(tile.sum())
+    _, _, want = tr.rans_encode(data, S, freqs=freqs)
+    budget = want.size if budget is None else budget  # exactly n_words
+    assert carry == want.size
+    words = np.full(budget, -1, np.int64)
+    for g in range(K * W):
+        for lane in np.nonzero(bits[g])[0]:
+            pos = offsets[g] + int(bits[g, :lane].sum())
+            if pos < budget:
+                words[pos] = cand.reshape(K * W, 32)[g, lane]
+    words[min(carry, budget):] = 0
+    m = min(carry, budget)
+    np.testing.assert_array_equal(words[:m], want[:m])
+    assert not words[m:].any() and words.size == budget
 
 
 def test_kernels_refuse_cpu_tensors():

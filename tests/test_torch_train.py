@@ -675,7 +675,9 @@ def test_pool_iterator_batches_bit_for_bit():
     """Three sub-epochs over a shuffled, augmented pool (two sub-epochs a
     pass, so one reshuffle in between, and a wrap-around tail): the same
     batches, the same epoch counter and entity order as the JAX
-    iterator."""
+    iterator. Each sub-epoch's threaded stream is drained to its end, so
+    its producer has finished the pass (and any reshuffle) before the
+    counters are compared."""
     kw = dict(n_train=2, n_valid=1, n_test=1, seed=3, n_onsets=30,
               augment=dict(NO_AUGMENT, sheet_scaling=[0.9, 1.1],
                            system_translation=3, onset_translation=1,
@@ -686,8 +688,10 @@ def test_pool_iterator_batches_bit_for_bit():
     jitr = jit_.MultiviewPoolIteratorUnsupervised(7, k_samples=k)(jpool)
     titr = tit.MultiviewPoolIteratorUnsupervised(7, k_samples=k)(tpool)
     for _ in range(3):
-        for (a1, a2), (b1, b2) in zip(jitr, tit.threaded_generator_from_iterator(
-                titr, num_cached=2)):
+        want = list(jitr)
+        got = list(tit.threaded_generator_from_iterator(titr, num_cached=2))
+        assert len(got) == len(want) > 0
+        for (a1, a2), (b1, b2) in zip(want, got):
             assert np.array_equal(a1, b1) and np.array_equal(a2, b2)
         assert jitr.epoch_counter == titr.epoch_counter
         assert np.array_equal(jpool.train_entities, tpool.train_entities)
