@@ -46,12 +46,17 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "gather_feature_windows": ([_P, _P] + [_I] * 10 + [_P, _P], _I),
     },
     "dtw": {
-        # dist, R, C, threads, k, smem_bytes, acc, stream
-        "dtw_accumulate": ([_P] + [_I] * 5 + [_P, _P], _I),
-        # acc, R, C, out, stream
-        "dtw_traceback": ([_P, _I, _I, _P, _P], _I),
+        # dist, R, C, ld, codes, cld, acc, cost, bnd, Rp, ticket, k,
+        # warps, ctas, ring_rows, chunk, smem_bytes, stream
+        "dtw_accumulate": ([_P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _P]
+                           + [_I] * 6 + [_P], _I),
+        # codes, R, C, cld, cost, out, stream
+        "dtw_traceback": ([_P, _I, _I, _I, _P, _P, _P], _I),
         # rounds, threads, out, stream
         "dtw_barrier_rounds": ([_I, _I, _P, _P], _I),
+        # steps, out, stream
+        "dtw_cell_probe": ([_I, _P, _P], _I),
+        "dtw_walk_probe": ([_I, _P, _P], _I),
     },
     "rans": {
         # freqs, states, words, P, S, W, n, K, g, threads, ring_words,

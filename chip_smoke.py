@@ -121,18 +121,25 @@ exits non-zero):
    in float32, within 1e-2 of the MRR), the step's event ms, device busy
    and peak memory beside float32's.
 
-14. alignment: a. both DTW kernels (``csrc/dtw.cu``: the accumulation
-   and the traceback) against their plain versions on the card at (90,
-   70), (64, 128) (wide, so transposed), (70, 65) and (604, 860), each
-   with random costs and with costs quantized to quarters (many exact
-   ties), at 6,000 x 4,000 and at 16,500 x 16,400 (wider than the
-   shared-memory ring: the global-memory path): the accumulated costs
-   bit-identical (the +inf cells of the diagonal layout included), the
-   path identical, the final cost identical, ``dtw_by_dist`` on the card
-   equal to the CPU's up to 10^6 cells;
-   their times at the corpus piece's shape and at 6,000 x 4,000 beside the
-   plain versions', the byte bound and the barrier floor (the diagonals
-   times one empty barrier round, ``dtw_barrier_rounds``). b.
+14. alignment: a. both DTW kernels (``csrc/dtw.cu``: the accumulation,
+   which writes a direction code a cell and the accumulated costs when
+   asked, and the walk over the codes) against their plain versions on
+   the card at (90, 70), (64, 128) (wide, so transposed), (70, 65) and
+   (604, 860), each with random costs and with costs quantized to
+   quarters (many exact ties), at the corpus piece with NaN cells and
+   with all-zero costs (every comparison a tie), at 6,000 x 4,000 (with
+   NaN cells too) and at 16,500 x 16,400 (65 CTAs handing their columns
+   on through L2): the codes, the accumulated costs and the final cost
+   bit-identical (NaN where the plain version has NaN), the path
+   identical to the plain walk over the codes and to the walk over the
+   costs themselves, ``dtw_by_dist`` on the card equal to the CPU's up to
+   10^6 cells; their times at the corpus piece's shape and at 6,000 x
+   4,000 beside the plain versions', the bound (the bytes against the
+   dependency chain: R + C - 1 NaN-propagating min-adds,
+   ``dtw_cell_probe``, and the path's steps of one dependent shared byte
+   load, ``dtw_walk_probe``) and the barrier floor of a design with one
+   CTA-wide barrier a diagonal (the
+   diagonals times one empty barrier round, ``dtw_barrier_rounds``). b.
    ``audio2sheet_align.main`` at full width (``mutopia_ccal_cont_rsz``,
    ``synth_serving_ckpt.pkl``) over 12 corpus pieces (``npz:``), in
    ``pydtw`` and ``baseline``, at the CLI's default steps (a 604 x 860
@@ -2350,7 +2357,7 @@ def phase_precision(torch, ctx):
 # 6,000 x 4,000 alignment the JAX package's docstring names
 DTW_SHAPES = ((90, 70), (64, 128), (70, 65), (604, 860))
 DTW_LARGE = (6000, 4000)
-# wider than the shared-memory ring's 16,384 columns: the global-memory path
+# the widest check: 65 CTAs at two columns a lane, chained through L2
 DTW_GLOBAL = (16_500, 16_400)
 ALIGN_PIECES = 12          # of the 60-piece corpus, through npz:
 STUB_PIECES = ["StubPiece_A", "StubPiece_Ragged", "StubPiece_Audio44k",
@@ -2359,96 +2366,159 @@ STUB_COLLECTION = "/fake/collection"   # the msmd stub seeds pieces from it
 
 
 def dtw_costs(shape, kind, seed):
-    d = np.random.default_rng(seed).random(shape).astype(np.float32)
-    return np.round(d * 4) / 4 if kind == "quarters" else d
+    """Costs of ``kind``: random in [0, 1), rounded to quarters (ties),
+    with a few NaN cells (NaN spreads down and right), or all zero (every
+    comparison a tie)."""
+    rng = np.random.default_rng(seed)
+    d = rng.random(shape).astype(np.float32)
+    if kind == "quarters":
+        d = np.round(d * 4) / 4
+    elif kind == "nan":
+        d.flat[rng.integers(0, d.size, 4)] = np.nan
+    elif kind == "ties":
+        d[:] = 0
+    return d
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit for bit, a NaN wherever the other has one (payloads not
+    compared)."""
+    na, nb = a.isnan(), b.isnan()
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0, a).view(torch.int32),
+        torch.where(nb, 0, b).view(torch.int32)))
+
+
+def same_cost(a, b) -> bool:
+    return a == b or (a != a and b != b)
 
 
 def check_dtw(torch, dist: np.ndarray) -> dict:
     """Both DTW kernels against their plain versions on the card, on the
     tall orientation ``dtw_by_dist`` runs (a wide matrix is transposed):
-    the accumulated costs bit-identical (+inf cells of the diagonal layout
-    included), the path identical, the final cost identical; and the whole
-    ``dtw_by_dist`` on the card equal to the CPU's (float32 path)."""
+    the codes, the accumulated costs and the final cost bit-identical (NaN
+    for NaN), with and without the costs asked for; the path identical to
+    the plain walk over the codes and to the walk over the costs; the
+    whole ``dtw_by_dist`` on the card equal to the CPU's (float32 path)."""
     from audio_sheet_retrieval_tpu_torch.ops import dtw
 
     tall = dist if dist.shape[0] >= dist.shape[1] else dist.T
     x = torch.from_numpy(np.ascontiguousarray(tall)).to("cuda")
-    skew = dtw.skew_to_diagonals(x)
-    acc = dtw.dtw_accumulate(skew)
-    ref = dtw.dtw_accumulate_plain(skew)
+    got = dtw.dtw_accumulate(x, return_acc=True)
+    ref = dtw.dtw_accumulate_plain(x)
     torch.cuda.synchronize()
-    assert torch.equal(acc, ref), f"dtw_accumulate differs at {dist.shape}"
-    got, want = dtw.dtw_traceback(acc), dtw.dtw_traceback_plain(acc)
-    assert np.array_equal(got[0], want[0]) and \
-        np.array_equal(got[1], want[1]), f"path differs at {dist.shape}"
-    assert got[2] == want[2] == float(acc[-1, -1]), (got[2], want[2])
+    assert torch.equal(got.codes, ref.codes), f"codes differ at {dist.shape}"
+    assert same_bits(torch, got.acc, ref.acc), f"acc differs at {dist.shape}"
+    assert same_bits(torch, got.cost, ref.cost), f"cost at {dist.shape}"
+    lean = dtw.dtw_accumulate(x)
+    assert lean.acc is None and torch.equal(lean.codes, ref.codes) and \
+        same_bits(torch, lean.cost, ref.cost)
+    path = dtw.dtw_traceback(lean.codes, lean.cost)
+    want = dtw.walk_codes_plain(ref.codes, ref.cost)
+    by_value = dtw.dtw_traceback_plain(ref.acc)
+    for k in (0, 1):
+        assert np.array_equal(path[k], want[k]) and \
+            np.array_equal(by_value[k], want[k]), f"path at {dist.shape}"
+    assert same_cost(path[2], want[2]) and \
+        same_cost(path[2], float(ref.acc[-1, -1])), (path[2], want[2])
     if dist.size <= 10 ** 8:   # the whole float32 path, its matrix downloaded
         card = dtw.dtw_by_dist(dist, device="cuda")
-        assert np.array_equal(card[2], dtw.diagonals_to_matrix(
-            acc, tall.shape[0]).cpu().numpy())
+        assert np.array_equal(card[2], ref.acc.cpu().numpy().astype(
+            np.float64), equal_nan=True)
     if dist.size <= 10 ** 6:   # the CPU's plain loop, at the small shapes
         cpu = dtw.dtw_by_dist(dist, device="cpu")
-        assert card[0] == cpu[0]
-        assert np.array_equal(card[2], cpu[2])
+        assert same_cost(card[0], cpu[0])
+        assert np.array_equal(card[2], cpu[2], equal_nan=True)
         assert all(np.array_equal(a, b) for a, b in zip(card[3], cpu[3]))
-    return dict(shape=list(dist.shape), path_len=len(got[0]),
-                cost=got[2], max_abs_err=0.0)
+    return dict(shape=list(dist.shape), path_len=len(path[0]),
+                cost=path[2] if path[2] == path[2] else "nan",
+                plan=list(dtw.acc_plan(tall.shape[1])), max_abs_err=0.0)
 
 
-def dtw_bound(r: int, c: int, n_path: int):
-    """DTW of an [r, c] matrix: the distances read once, the accumulated
-    costs written once, the path written (int64 pairs); two mins and an
-    add a cell at the float32 rate."""
-    return bound(8 * r * c + 16 * n_path, 3 * r * c)
+def dtw_latency_ns(torch, entry: str, steps: int = 100_000) -> float:
+    """Nanoseconds a step of the one-thread probe ``entry`` of
+    ``csrc/dtw.cu`` (its time at 11 x steps less its time at steps, over
+    10 x steps: the launch cancels)."""
+    from audio_sheet_retrieval_tpu_torch.ops import _native
+
+    fn = getattr(_native.load("dtw"), entry)
+    out = torch.empty(4, dtype=torch.int32, device="cuda")
+
+    def run(n):
+        return lambda: _native.check(fn(n, out.data_ptr(), torch.cuda
+                                        .current_stream().cuda_stream), entry)
+    return (cuda_ms(run(11 * steps), iters=5) - cuda_ms(run(steps), iters=5)
+            ) * 1e6 / (10 * steps)
+
+
+def dtw_bound(r: int, c: int, n_path: int, cell_ns: float, walk_ns: float):
+    """The least time of a DTW of an [r, c] matrix (no accumulated costs
+    asked), whatever the design: the larger of the bytes (the distances
+    read once, a code a cell written once, the path's int32 pairs) at the
+    card's memory rate and the dependency chain (r + c - 1 cells of one
+    NaN-propagating min and one add, then n_path dependent walk steps)."""
+    peaks = card_peaks()
+    bytes_ms = (5 * r * c + 8 * n_path) / peaks["hbm_bytes_per_s"] * 1e3
+    chain_ms = ((r + c - 1) * cell_ns + n_path * walk_ns) * 1e-6
+    return (max(bytes_ms, chain_ms),
+            "bytes" if bytes_ms >= chain_ms else "operations",
+            bytes_ms, chain_ms)
 
 
 def dtw_times(torch, dist: np.ndarray, plain_iters: int) -> dict:
     """Times of the DTW kernels on the tall orientation of ``dist``: event
-    ms of a call (``ms``: the accumulation and the traceback with its path
+    ms of a call (``ms``: the accumulation and the walk with its path
     download; each alone), each kernel queued back to back (its device
-    time); the plain versions' on the card, the bound and the barrier
-    floor: the diagonals times one empty barrier round of the same CTA
-    width (``dtw_barrier_rounds``)."""
+    time); the plain versions' on the card; the bound (``dtw_bound``, its
+    two latencies from the probes) and the barrier floor of a design with
+    one CTA-wide barrier a diagonal (the one this kernel replaced): the
+    diagonals times one empty barrier round at that design's CTA width
+    (``dtw_barrier_rounds``)."""
     from audio_sheet_retrieval_tpu_torch.ops import _native, dtw
 
     tall = dist if dist.shape[0] >= dist.shape[1] else dist.T
     r, c = tall.shape
     x = torch.from_numpy(np.ascontiguousarray(tall)).to("cuda")
-    skew = dtw.skew_to_diagonals(x)
-    acc = dtw.dtw_accumulate(skew)
-    n_path = len(dtw.dtw_traceback(acc)[0])
-    b_ms, b_by = dtw_bound(r, c, n_path)
-    plan = dtw.acc_plan(c)
+    res = dtw.dtw_accumulate(x)
+    n_path = len(dtw.dtw_traceback(res.codes, res.cost)[0])
+    cell_ns = dtw_latency_ns(torch, "dtw_cell_probe")
+    walk_ns = dtw_latency_ns(torch, "dtw_walk_probe")
+    b_ms, b_by, bytes_ms, chain_ms = dtw_bound(r, c, n_path, cell_ns,
+                                               walk_ns)
     lib = _native.load("dtw")
-    scratch = torch.empty(plan.threads, dtype=torch.int32, device="cuda")
-    scratch_tb = torch.empty(2 + 2 * (r + c - 1), dtype=torch.int32,
-                             device="cuda")
+    barrier_threads = min(1024, -(-c // 32) * 32)
+    scratch = torch.empty(barrier_threads, dtype=torch.int32, device="cuda")
+    out = torch.empty(2 + 2 * (r + c - 1), dtype=torch.int32, device="cuda")
     n_diag = r + c - 1
     round_ms = cuda_ms(lambda: _native.check(lib.dtw_barrier_rounds(
-        n_diag, plan.threads, scratch.data_ptr(),
+        n_diag, barrier_threads, scratch.data_ptr(),
         torch.cuda.current_stream().cuda_stream), "barrier"),
         iters=10) / n_diag
     row = dict(
-        ms=cuda_ms(lambda: dtw.dtw_traceback(dtw.dtw_accumulate(skew)),
+        ms=cuda_ms(lambda: dtw.dtw_traceback(*dtw.dtw_accumulate(x)[:2]),
                    iters=10),
-        plain_ms=cuda_ms(lambda: dtw.dtw_traceback_plain(
-            dtw.dtw_accumulate_plain(skew)), iters=plain_iters, warmup=1),
+        plain_ms=cuda_ms(lambda: dtw.walk_codes_plain(
+            *dtw.dtw_accumulate_plain(x, return_acc=False)[:2]),
+            iters=plain_iters, warmup=1),
         bound_ms=b_ms, bound_by=b_by,
         # no single PyTorch call computes DTW
         library_ms=None,
+        bytes_ms=bytes_ms, chain_ms=chain_ms, cell_ns=cell_ns,
+        walk_step_ns=walk_ns,
         barrier_floor_ms=round_ms * n_diag,
         barrier_round_ns=round_ms * 1e6,
-        accumulate_ms=cuda_ms(lambda: dtw.dtw_accumulate(skew), iters=10),
-        accumulate_queued_ms=queued_ms(lambda: dtw.dtw_accumulate(skew)),
-        traceback_ms=cuda_ms(lambda: dtw.dtw_traceback(acc), iters=10),
-        # the bare kernel, queued, without the wrapper's path download (the
-        # profiler recorded only some launches of these kernels on an H100)
+        accumulate_ms=cuda_ms(lambda: dtw.dtw_accumulate(x), iters=10),
+        accumulate_queued_ms=queued_ms(lambda: dtw.dtw_accumulate(x)),
+        traceback_ms=cuda_ms(lambda: dtw.dtw_traceback(res.codes, res.cost),
+                             iters=10),
+        # the bare kernel, queued, without the wrapper's path download
         traceback_queued_ms=queued_ms(lambda: _native.check(
-            lib.dtw_traceback(acc.data_ptr(), r, c, scratch_tb.data_ptr(),
+            lib.dtw_traceback(res.codes.data_ptr(), r, c,
+                              res.codes.stride(0), res.cost.data_ptr(),
+                              out.data_ptr(),
                               torch.cuda.current_stream().cuda_stream),
             "dtw_traceback")),
-        skew_ms=cuda_ms(lambda: dtw.skew_to_diagonals(x), iters=10),
-        plan=list(plan))
+        plan=list(dtw.acc_plan(c)))
     emit("timing", kernel="dtw", R=r, C=c, diagonals=n_diag,
          path_len=n_path, **row)
     return row
@@ -2614,14 +2684,14 @@ def phase_alignment(torch, ctx):
     shape and their times, then ``align_cli`` with its launches counted."""
     t0 = time.perf_counter()
     checked = []
-    for i, shape in enumerate(DTW_SHAPES):
-        for kind in ("random", "quarters"):
-            checked.append(dict(check_dtw(torch, dtw_costs(shape, kind, i)),
-                                kind=kind))
-    checked.append(dict(check_dtw(torch, dtw_costs(DTW_LARGE, "random", 9)),
-                        kind="random"))
-    checked.append(dict(check_dtw(torch, dtw_costs(DTW_GLOBAL, "random",
-                                                   10)), kind="random"))
+    cases = [(shape, kind, i) for i, shape in enumerate(DTW_SHAPES)
+             for kind in ("random", "quarters")]
+    cases += [(DTW_SHAPES[-1], "nan", 5), (DTW_SHAPES[-1], "ties", 6),
+              (DTW_LARGE, "random", 9), (DTW_LARGE, "nan", 11),
+              (DTW_GLOBAL, "random", 10)]
+    for shape, kind, seed in cases:
+        checked.append(dict(check_dtw(torch, dtw_costs(shape, kind, seed)),
+                            kind=kind))
     emit("alignment", check="a. kernels vs plain", bit_identical=True,
          cases=checked)
     times = dtw_times(torch, dtw_costs(DTW_SHAPES[-1], "random", 3), 5)
