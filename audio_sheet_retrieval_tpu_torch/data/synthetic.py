@@ -1,7 +1,8 @@
 """Synthetic MSMD-like pieces.
 
-The port's own copy of ``make_piece_list``, ``load_synthetic_retrieval``
-and what they call from the JAX package's ``data/synthetic.py``; the same
+The port's own copy of ``make_piece_list``,
+``make_confusable_piece_list``, ``load_synthetic_retrieval`` and what they
+call from the JAX package's ``data/synthetic.py``; the same
 seed gives the same pieces and pools bit for bit
 (``tests/test_torch_standalone.py``).
 
@@ -102,6 +103,60 @@ def make_piece_list(seed: int, n_pieces: int, **piece_kwargs):
         specs.append(sp)
         o2cs.append(oc)
     return images, specs, o2cs
+
+
+def make_confusable_piece_list(
+    seed: int,
+    n_pieces: int,
+    n_onsets: int = 120,
+    n_motifs: int = 16,
+    motif_len: int = 20,
+    transpose_amount: int = 2,
+    near_dup_changes: int = 6,
+    **piece_kwargs,
+):
+    """A piece-ID corpus built to confuse snippet voting, rendered as the
+    training pieces are (``render_piece``).
+
+    Every piece concatenates motifs from one shared bank of ``n_motifs``,
+    so most local windows (the unit the gallery votes with) recur across
+    pieces and only the motif order identifies a piece. Pieces come in
+    triples: a base, its transposition by ``transpose_amount`` pitch steps
+    (same contour, shifted staff positions and bands), and a
+    near-duplicate of the base with ``near_dup_changes`` of its
+    ``n_onsets`` notes drawn anew.
+
+    -> (images, specs, o2cs, kinds), ``kinds[i]`` in {"base",
+    "transposed", "neardup"}.
+    """
+    rng = np.random.default_rng(seed)
+    bank = rng.integers(0, N_PITCHES, (n_motifs, motif_len))
+    n_per_piece = int(np.ceil(n_onsets / motif_len))
+
+    seqs, kinds = [], []
+    for i in range(n_pieces):
+        if i % 3 == 1 and i > 0:
+            # wrapping keeps the pitch alphabet and each motif's contour
+            seq = (seqs[i - 1] + transpose_amount) % N_PITCHES
+            kinds.append("transposed")
+        elif i % 3 == 2 and i > 1:
+            seq = seqs[i - 2].copy()
+            pos = rng.choice(n_onsets, size=near_dup_changes, replace=False)
+            seq[pos] = rng.integers(0, N_PITCHES, near_dup_changes)
+            kinds.append("neardup")
+        else:
+            order = rng.integers(0, n_motifs, n_per_piece)
+            seq = np.concatenate([bank[m] for m in order])[:n_onsets]
+            kinds.append("base")
+        seqs.append(seq)
+
+    images, specs, o2cs = [], [], []
+    for seq in seqs:
+        img, sp, oc = render_piece(seq, rng, **piece_kwargs)
+        images.append(img)
+        specs.append(sp)
+        o2cs.append(oc)
+    return images, specs, o2cs, kinds
 
 
 def load_synthetic_retrieval(

@@ -13,7 +13,8 @@ HWIO kernels; ``params_from_numpy`` transposes them (3, 2, 0, 1). Either
 way each block's eval BN is folded into its conv at load
 (``encoder.fold_batch_norm``). For training, ``train_params_from_numpy``
 builds the unfolded ``cca_model.TrainParams`` from the same tree and
-``train_params_to_numpy`` gives the tree back (what ``fit`` dumps).
+``train_params_to_numpy`` gives the tree back (what ``fit`` dumps), and
+``export_lasagne_arrays`` the flat Lasagne list.
 """
 
 from __future__ import annotations
@@ -204,3 +205,21 @@ def train_params_to_numpy(params: TrainParams) -> ModelParams:
     return ModelParams(view(params.view1), view(params.view2),
                        CCAState(*(t.detach().cpu().numpy()
                                   for t in params.cca)))
+
+
+def export_lasagne_arrays(params) -> List[np.ndarray]:
+    """The inverse of the import: the flat 97-array Lasagne list (the
+    reference's ``_est_UV`` re-dumps, refine_cca.py:109-111) of an unfolded
+    tree with numpy leaves (as ``train_params_to_numpy`` gives it, kernels
+    HWIO) or of a ``TrainParams``: per view 9 x (W[OIHW], beta, gamma,
+    mean, inv_std), then U, V, mean1, mean2, S12, S11, S22."""
+    if isinstance(params, TrainParams):
+        params = train_params_to_numpy(params)
+    view1, view2, cca = params
+    out: List[np.ndarray] = []
+    for view in (view1, view2):
+        for blk in view["blocks"]:
+            out.append(np.transpose(np.asarray(blk["w"]), (3, 2, 0, 1)))
+            out.extend(np.asarray(blk[k]) for k in _BLOCK_KEYS[1:])
+    out.extend(np.asarray(a) for a in cca)
+    return out

@@ -262,6 +262,17 @@ exits non-zero):
    the tutorial page, the three nets with their own map tables, map_bits
    8 and 16: the maps bit-identical; a tiny budget takes the overflow
    path and equals raw; each wire pair's page time; bytes a page.
+19. the experiment layer. a. ``scripts/torch_accuracy_sweep.py``'s
+   ``sweep`` over 30 confusable pieces (seed 31, 120 onsets), onset
+   galleries, all four arms of its ladder: ``high``'s per-query ranks
+   equal to highest's in every cell, the f32-highest e100 cell's ranks
+   equal to a replay through the plain top-k, the bf16-fcp builds' gather
+   launches each bit-identical to the plain version, 30, 60 or 90 queries
+   a cell; seconds, rank<=1 a cell, bf16-fcp against bf16 at e100 (b, c,
+   McNemar p). b. ``scripts/torch_full_protocol.py`` at full width in its
+   default bf16 over 6 / 2 / 2 pieces of 60 onsets, 2 epochs, one regime:
+   the table's two rows of that regime filled, the refined dump read back
+   with a finite CCA state; seconds.
 
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
@@ -269,13 +280,14 @@ phases 11-16 (``fit``, ``run_eval``, the CLI, the resume runs, each build
 and query set of phase 13, each ``audio2sheet_align`` run of phase 14,
 each command line of phase 15, the traced query and each rank process of
 phases 16-17, whose counts its ranks report) and zeroed before phase
-18b and read after 18d; each of phases 4-13, 15 and 16 must launch the
+18b and read after 18d, and around each of 19a and 19b; each of phases
+4-13, 15, 16 and 19 must launch the
 top-k kernel, phase 17 on every rank, and phase 14 both DTW kernels once
 for each piece it aligns by ``pydtw``; phases 15 and 18b-d both rANS
-kernels, phase 17 the decode on every rank; the single-card references
-of phase 17 and the checks of 18a are not counted. The ``kernels`` line
-reports the sum over phases 4-18 (kernel 2's bf16 launches of phase
-13 among them), beside each kernel's times at the main path's shape
+kernels, phase 17 the decode on every rank, 19a the gather kernel; the
+single-card references of phase 17, the checks of 18a and 19a's plain
+replay are not counted. The ``kernels`` line reports the sum over phases
+4-19 (kernel 2's bf16 launches of phases 13 and 19a among them), beside each kernel's times at the main path's shape
 (top-k: Q = 100, N = 12,000, k = 25, and at a db shard's N = 6,000
 under ``db_shard``; gather: one 6040-px strip, float32,
 its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
@@ -4568,6 +4580,138 @@ def phase_wire(torch, ctx):
     return launches
 
 
+# --- phase 19: the experiment layer -------------------------------------------
+
+SWEEP_SEED = 31
+SWEEP_PIECES = 30          # confusable pieces of 120 onsets
+PROTOCOL_ARGV = ["--n_train_pieces", "6", "--n_valid_pieces", "2",
+                 "--n_test_pieces", "2", "--n_onsets", "60",
+                 "--max_epochs", "2", "--n_test", "100",
+                 "--n_refine", "2000", "--regimes", "mutopia_no_aug"]
+
+
+def script_module(name: str):
+    """``scripts/<name>.py`` of this checkout, imported as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "scripts", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def experiment_sweep(torch, ctx, count) -> dict:
+    """19a. The accuracy sweep's function over 30 confusable pieces, seed
+    31, onset galleries, all four arms: ``high`` equal to highest query
+    for query, the f32-highest e100 ranks equal to a replay through the
+    plain top-k, each of bf16-fcp's gather launches bit-identical to the
+    plain version, every cell of 30, 60 or 90 queries."""
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+
+    sweep_mod = script_module("torch_accuracy_sweep")
+    dev, params, cfg = ctx["dev"], ctx["params"], ctx["cfg"]
+    recorded = []
+    t0 = time.perf_counter()
+    win.gather_feature_windows.recorded = recorded
+    try:
+        out, _, ranks = count(lambda: quiet(lambda: sweep_mod.sweep(
+            n_pieces=SWEEP_PIECES, seeds=(SWEEP_SEED,), modes=("onset",),
+            device=dev))[0])
+    finally:
+        win.gather_feature_windows.recorded = None
+    sweep_s = time.perf_counter() - t0
+    cells = out["cells"]
+    assert len(cells) == 18, sorted(cells)
+    for key, cell in cells.items():
+        epq = int(key.rsplit("|e", 1)[1])
+        qpp = dict(sweep_mod.DIFFICULTY)[epq]
+        assert cell["n"] == SWEEP_PIECES * qpp, (key, cell["n"])
+    for epq, _ in sweep_mod.DIFFICULTY:
+        high = ranks[(SWEEP_SEED, "f32-high+u16", "onset", epq)]
+        highest = ranks[(SWEEP_SEED, "f32-highest+u16", "onset", epq)]
+        assert np.array_equal(high, highest), f"high differs at e{epq}"
+    # the bf16-fcp builds' gather launches, each against the plain version
+    assert len(recorded) == SWEEP_PIECES, len(recorded)
+    for plane, starts, n_cols, got in recorded:
+        assert plane.dtype == torch.bfloat16
+        assert torch.equal(got, win.gather_feature_windows_plain(
+            plane, starts, n_cols)), "bf16-fcp gather differs"
+    del recorded[:]
+    # the f32-highest e100 cell through the plain top-k (not counted)
+    images, specs, coords, _ = sweep_mod.seed_corpus(
+        SWEEP_SEED, SWEEP_PIECES, out["n_onsets"])
+    gal = sweep_mod.build_gallery(params, cfg, "f32-highest", "onset",
+                                  images, coords, device=dev)
+    plain = plain_replay_ranks(torch, params, cfg, gal, specs, SWEEP_PIECES)
+    kernel = ranks[(SWEEP_SEED, "f32-highest+u16", "onset", 100)]
+    assert plain == [int(r) for r in kernel], "plain top-k replay differs"
+    fcp = out["comparisons"]["bf16-fcp+u16 vs bf16+u16|onset|e100"]
+    row = dict(seconds=sweep_s, n_pieces=SWEEP_PIECES, seed=SWEEP_SEED,
+               rank1={key.split("|")[0] + "|" + key.rsplit("|", 1)[1]:
+                      cell["rank1"] for key, cell in cells.items()},
+               high_equals_highest=True, plain_replay_equal=True,
+               fcp_gather_launches_bit_identical=True,
+               bf16_fcp_vs_bf16_e100=dict(
+                   b=fcp["discordant_a_only"], c=fcp["discordant_b_only"],
+                   p=fcp["mcnemar_p"]))
+    emit("experiments", check="a. accuracy sweep", **row)
+    return row
+
+
+def experiment_protocol(torch, ctx, count) -> dict:
+    """19b. The protocol script at full width in its default bf16, one
+    regime, a few pieces: the table filled as the CPU test fills it, the
+    refined dump read back."""
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        load_any_checkpoint,
+    )
+
+    proto = script_module("torch_full_protocol")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        out, _ = count(lambda: quiet(lambda: proto.main(
+            PROTOCOL_ARGV + ["--workdir", work])))
+        seconds = time.perf_counter() - t0
+        table = out["table"]
+        filled = [r for r in table if not r.endswith("- & - & - & - \\\\")]
+        assert len(table) == 8 and len(filled) == 2, table
+        assert all(r.count("&") == 12 and r.startswith("none")
+                   for r in filled), filled
+        model = proto.build_arg_parser().get_default("model")
+        dump = os.path.join(work, "exp", model + "_est_UV",
+                            "params_all_split_mutopia_no_aug.pkl")
+        refined = load_any_checkpoint(dump, ctx["cfg"], device=ctx["dev"])
+        assert all(bool(torch.isfinite(t).all()) for t in refined.cca), \
+            "refined CCA state not finite"
+    row = dict(seconds=seconds, argv=PROTOCOL_ARGV,
+               timings=out["timings"], table=filled,
+               refined_dump_loaded=True)
+    emit("experiments", check="b. protocol script", **row)
+    return row
+
+
+def phase_experiments(torch, ctx):
+    """19. The experiment layer on the card: a. the accuracy sweep, b. the
+    four-regime protocol script (one regime here); each counted."""
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in read_launches()}
+    count = launch_counter(launches)
+    sweep_row = experiment_sweep(torch, ctx, count)
+    assert launches["gather_feature_windows"] > 0, \
+        "the sweep's bf16-fcp builds ran no gather kernel"
+    assert launches["topk_gallery"] > 0, "the sweep ran no top-k kernel"
+    sweep_topk = launches["topk_gallery"]
+    protocol_row = experiment_protocol(torch, ctx, count)
+    assert launches["topk_gallery"] > sweep_topk, \
+        "the protocol ran no top-k kernel"
+    ctx["experiments"] = dict(sweep=sweep_row, protocol=protocol_row)
+    emit("experiments", launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 RANK_SCENARIOS = {"fit": rank_gloo, "nccl_fit": rank_nccl,
                   "gallery": rank_gallery}
 
@@ -4583,7 +4727,7 @@ def main() -> int:
                       phase_eval_refine, phase_train, phase_device_pool,
                       phase_precision, phase_alignment, phase_omr,
                       phase_reports, phase_mesh, phase_gallery,
-                      phase_wire):
+                      phase_wire, phase_experiments):
             for name, n in phase(torch, ctx).items():
                 launches[name] += n
     rows = []

@@ -287,3 +287,39 @@ def test_pytree_loader_refuses_other_jax_classes(tmp_path):
                      "tree": jnp.zeros(3)}, fp)
     with pytest.raises(pickle.UnpicklingError, match="without jax"):
         tuio.load_pytree(path)
+
+
+@pytest.mark.parametrize("source", ["numpy_tree", "train_params"])
+def test_export_lasagne_arrays_matches_jax(small, tmp_path, source):
+    """``export_lasagne_arrays`` of the unfolded numpy tree, or of the
+    ``TrainParams`` built from it, gives the JAX package's 97 arrays bit
+    for bit (order, shapes, dtypes). The list pickled as a Lasagne dump is
+    read back by both packages' ``load_any_checkpoint`` and embeds as the
+    native dump of the same tree, within ATOL (1e-5, float32 convs in
+    another order), as JAX's own test of its export holds it."""
+    cfg, x1, x2 = small[0], small[3], small[4]
+    jparams, np_tree = random_params(cfg, 7)
+    want = jli.export_lasagne_arrays(jparams)
+    src = (np_tree if source == "numpy_tree"
+           else tli.train_params_from_numpy(np_tree, cfg, device="cpu"))
+    got = tli.export_lasagne_arrays(src)
+    assert len(got) == len(want) == tli.N_TOTAL
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        np.testing.assert_array_equal(a, b)
+
+    native = str(tmp_path / "native.pkl")
+    juio.save_pytree(native, jparams)
+    legacy = str(tmp_path / "legacy.pkl")
+    with open(legacy, "wb") as fp:
+        pickle.dump(got, fp)
+    np.testing.assert_array_equal(
+        np.asarray(jwrapper.load_any_checkpoint(legacy, cfg).cca.U),
+        load_any_checkpoint(legacy, cfg, device="cpu").cca.U.numpy())
+    want1 = jwrapper.RetrievalWrapper(cfg, param_file=native)
+    for wrapper in (jwrapper.RetrievalWrapper(cfg, param_file=legacy),
+                    RetrievalWrapper(cfg, param_file=legacy, device="cpu")):
+        np.testing.assert_allclose(wrapper.compute_view_1(x1),
+                                   want1.compute_view_1(x1), atol=ATOL)
+        np.testing.assert_allclose(wrapper.compute_view_2(x2),
+                                   want1.compute_view_2(x2), atol=ATOL)

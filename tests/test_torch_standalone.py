@@ -133,6 +133,51 @@ def test_make_piece_list_bit_for_bit(pieces):
             np.testing.assert_array_equal(to2c[p][k], jo2c[p][k])
 
 
+@pytest.mark.parametrize("seed,n_pieces,kw", [
+    (31, 9, dict(n_onsets=60)),
+    (47, 7, dict(n_onsets=40, n_performances=2)),
+    (5, 5, dict(n_onsets=25, n_motifs=3, motif_len=7, transpose_amount=5,
+                near_dup_changes=2)),
+], ids=["jax_test_case", "two_performances", "short_last_motif"])
+def test_make_confusable_piece_list_bit_for_bit(seed, n_pieces, kw):
+    """The confusable corpus is numpy: (images, specs, o2cs, kinds) equal
+    to the JAX package's bit for bit, dtypes too."""
+    want = jsyn.make_confusable_piece_list(seed, n_pieces, **kw)
+    got = tsyn.make_confusable_piece_list(seed, n_pieces, **kw)
+    (jimg, jspec, jo2c, jkinds), (timg, tspec, to2c, tkinds) = want, got
+    assert tkinds == jkinds and len(timg) == len(jimg) == n_pieces
+    for p in range(n_pieces):
+        np.testing.assert_array_equal(timg[p], jimg[p])
+        assert timg[p].dtype == jimg[p].dtype
+        assert len(tspec[p]) == len(jspec[p]) == kw.get("n_performances", 1)
+        for k in range(len(jspec[p])):
+            np.testing.assert_array_equal(tspec[p][k], jspec[p][k])
+            assert tspec[p][k].dtype == jspec[p][k].dtype
+            np.testing.assert_array_equal(to2c[p][k], jo2c[p][k])
+            assert to2c[p][k].dtype == jo2c[p][k].dtype
+
+
+def test_confusable_piece_list_structure():
+    """The JAX package's structural case (tests/test_data.py) on the
+    port's copy: triples of base, transposition and near-duplicate on one
+    geometry, deterministic."""
+    imgs, specs, o2cs, kinds = tsyn.make_confusable_piece_list(
+        31, 9, n_onsets=60)
+    assert kinds == ["base", "transposed", "neardup"] * 3
+    assert all(im.shape == imgs[0].shape for im in imgs)
+    # the near-duplicate differs from its base in a few note glyphs only
+    nd_diff = (imgs[0] != imgs[2]).mean()
+    assert 0 < nd_diff < 0.02
+    # the transposition moves every notehead (same x grid, shifted y)
+    tr_diff = (imgs[0] != imgs[1]).mean()
+    assert tr_diff > nd_diff
+    assert (imgs[0] != imgs[3]).mean() > nd_diff
+    np.testing.assert_array_equal(o2cs[0][0], o2cs[1][0])
+    imgs2, _, _, kinds2 = tsyn.make_confusable_piece_list(
+        31, 9, n_onsets=60)
+    assert kinds2 == kinds and np.array_equal(imgs2[4], imgs[4])
+
+
 @pytest.mark.parametrize("contexts", [
     {}, dict(spec_context=30, sheet_context=120, staff_height=100)],
     ids=["default", "narrow"])
