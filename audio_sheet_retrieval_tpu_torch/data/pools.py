@@ -1,7 +1,8 @@
 """Retrieval pool: aligned (sheet strip, spectrogram, onset->coord) triples.
 
 The port's own copy of the pool of the JAX package's ``data/pools.py``:
-the shape constants, ``NO_AUGMENT`` and ``AudioScoreRetrievalPool``
+the shape constants, ``NO_AUGMENT``, ``FULL_AUGMENT`` and
+``AudioScoreRetrievalPool``
 (behavioural parity with reference:audio_sheet_retrieval/utils/data_pools.py
 — constants :16-28, entity indexing with in-bounds filtering :88-118,
 including the reference's ``c_stop = o_start + sheet_context`` quirk, the
@@ -33,6 +34,18 @@ NO_AUGMENT: Dict = dict(
     interpolate=-1,
     synths=["ElectricPiano"],
     tempo_range=[1.00, 1.00],
+)
+
+# the reference's full augmentation (experiment configs overwrite it,
+# exp_configs/*.yaml); the capstone trains under it
+FULL_AUGMENT: Dict = dict(
+    NO_AUGMENT,
+    system_translation=5,
+    sheet_scaling=[0.95, 1.05],
+    onset_translation=1,
+    spec_padding=3,
+    synths=["ElectricPiano", "AcousticGrandPiano", "YamahaGrandPiano"],
+    tempo_range=[0.9, 1.1],
 )
 
 

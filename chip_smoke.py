@@ -273,6 +273,23 @@ exits non-zero):
    default bf16 over 6 / 2 / 2 pieces of 60 onsets, 2 epochs, one regime:
    the table's two rows of that regime filled, the refined dump read back
    with a finite CCA state; seconds.
+20. the scale runs and the tutorials. a. ``scripts/torch_capstone.py``'s
+   ``main`` at full width in bf16, cut to 17 train pieces of 3
+   performances (100 steps an epoch), 4 eval pieces, 3 epochs and 200
+   test samples, with ``--serving_ab``, under deterministic cuDNN: JAX's
+   JSON keys, every metric finite, phase 11's learning criteria, the saved
+   checkpoint read back embedding as the refined params the script served
+   (1e-5), rank<=1 of both serving dtypes over 60 pieces reported. b. both
+   ``tutorials/torch_*.ipynb`` notebooks' cells on the card (the CPU
+   tests' thresholds; their first 10 sheet and spectrogram codes within
+   1e-4 of the port's CPU codes for the same inputs; where no libmpg123
+   decodes the tutorial mp3, its committed decode
+   ``tests/golden/tutorial_audio_22050.npz``, and where no matplotlib is
+   installed, a stand-in ``pyplot`` that saves the figure as a gray PNG).
+   c. a 5-epoch ``mutopia_ccal_cont`` fit over phase 11's pieces on
+   device pools, deterministic cuDNN: phase 11's thresholds on the MRR of
+   the params ``fit`` returns (its best epoch; the last is reported),
+   updates/s.
 
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
@@ -280,14 +297,14 @@ phases 11-16 (``fit``, ``run_eval``, the CLI, the resume runs, each build
 and query set of phase 13, each ``audio2sheet_align`` run of phase 14,
 each command line of phase 15, the traced query and each rank process of
 phases 16-17, whose counts its ranks report) and zeroed before phase
-18b and read after 18d, and around each of 19a and 19b; each of phases
-4-13, 15, 16 and 19 must launch the
+18b and read after 18d, and around each of 19a, 19b and 20a-c; each of
+phases 4-13, 15, 16, 19 and 20 must launch the
 top-k kernel, phase 17 on every rank, and phase 14 both DTW kernels once
 for each piece it aligns by ``pydtw``; phases 15 and 18b-d both rANS
 kernels, phase 17 the decode on every rank, 19a the gather kernel; the
 single-card references of phase 17, the checks of 18a and 19a's plain
 replay are not counted. The ``kernels`` line reports the sum over phases
-4-19 (kernel 2's bf16 launches of phases 13 and 19a among them), beside each kernel's times at the main path's shape
+4-20 (kernel 2's bf16 launches of phases 13 and 19a among them), beside each kernel's times at the main path's shape
 (top-k: Q = 100, N = 12,000, k = 25, and at a db shard's N = 6,000
 under ``db_shard``; gather: one 6040-px strip, float32,
 its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
@@ -4712,6 +4729,338 @@ def phase_experiments(torch, ctx):
     return launches
 
 
+# --- phase 20: the scale runs and the tutorials --------------------------------
+
+# 17 train pieces of 3 performances make 100-step epochs (10,200
+# entities); 6 pieces (36 steps an epoch) did not lift the validation MRR
+# off chance in 3 epochs (PERF.md §6)
+CAPSTONE_ARGV = ["--n_train_pieces", "17", "--n_eval_pieces", "4",
+                 "--max_epochs", "3", "--n_test", "200", "--serving_ab",
+                 "--compute_dtype", "bfloat16"]
+CAPSTONE_KEYS = ["a2s", "a2s_refined", "cca_grad", "dtype", "entities",
+                 "s2a", "s2a_refined", "serving_ab", "train_secs", "val_mrr",
+                 "whitening"]
+NOTEBOOKS = ("torch_Embedding_Tutorial.ipynb",
+             "torch_Embedding_Tutorial_Audio_to_Audio.ipynb")
+# the tutorial recording as AudioProcessor.process first turns it (mono,
+# 22,050 Hz, int16), for a machine without libmpg123 to decode the mp3
+# (tests/test_torch_notebooks.py holds it to the mp3's decode)
+TUTORIAL_AUDIO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "golden", "tutorial_audio_22050.npz")
+NOTEBOOK_CODES_ATOL = 1e-4
+# the cont model's validation MRR read 0.0079, 0.0093, 0.0130, 0.0314 and
+# 0.0084 over 5 epochs (chance 0.0075; PERF.md §6): it learns by
+# epoch 4 and falls back at lr 2e-3, as the rehearsal's curve does until
+# its first refinement restart
+CONT_EPOCHS = 5
+
+
+def chance_mrr(n: int) -> float:
+    return float(np.mean(1.0 / np.arange(1, n + 1)))
+
+
+def scale_capstone(torch, ctx, count) -> dict:
+    """20a. ``scripts/torch_capstone.py``'s ``main`` at full width in bf16,
+    cut to 6 train pieces of 3 performances, 4 eval pieces, 2 epochs, 200
+    test samples, with ``--serving_ab``, under deterministic cuDNN: JAX's
+    keys with every metric finite, the validation MRR above epoch 1's and
+    twice chance (phase 11's criteria), the saved checkpoint read back by
+    ``load_any_checkpoint`` embedding as the refined params the script
+    served (1e-5), rank<=1 of both serving dtypes over 60 pieces."""
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        load_any_checkpoint,
+    )
+    from audio_sheet_retrieval_tpu_torch.train import engine
+
+    cap = script_module("torch_capstone")
+    dev = ctx["dev"]
+    recs, served = [], []
+    real_fit, real_acc = engine.fit, accuracy.piece_id_accuracy
+
+    def fit(params, data, *args, **kw):
+        recs.append(data["valid"].shape[0])
+        return real_fit(params, data, *args, on_epoch=recs.append, **kw)
+
+    def piece_id_accuracy(params, cfg, *args, **kw):
+        served.append((params, cfg.compute_dtype))
+        return real_acc(params, cfg, *args, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "refined.pkl")
+        engine.fit, accuracy.piece_id_accuracy = fit, piece_id_accuracy
+        t0 = time.perf_counter()
+        try:
+            with deterministic(torch):
+                out, _ = count(lambda: quiet(lambda: cap.main(
+                    CAPSTONE_ARGV + ["--save_ckpt", ckpt,
+                                     "--device", str(dev)])))
+        finally:
+            engine.fit, accuracy.piece_id_accuracy = real_fit, real_acc
+        seconds = time.perf_counter() - t0
+        assert sorted(out) == CAPSTONE_KEYS, sorted(out)
+        for key in ("s2a", "a2s", "s2a_refined", "a2s_refined"):
+            assert sorted(out[key]) == ["MRR", "R@1", "R@25", "med_rank"]
+            assert all(np.isfinite(v) for v in out[key].values()), out[key]
+        n_va, recs = recs[0], recs[1:]
+        epochs = int(CAPSTONE_ARGV[CAPSTONE_ARGV.index("--max_epochs") + 1])
+        assert len(recs) == epochs, recs
+        assert all(np.isfinite(r["train_loss"]) for r in recs), recs
+        assert recs[-1]["map_va"] > recs[0]["map_va"], recs
+        assert recs[-1]["map_va"] > 2 * chance_mrr(n_va), recs
+        assert out["val_mrr"] == round(max(r["map_va"] for r in recs), 4)
+        # the checkpoint file against the params the script served
+        assert [d for _, d in served] == ["float32", "bfloat16"], served
+        refined = served[0][0]
+        loaded = load_any_checkpoint(ckpt, ctx["cfg"], device=dev)
+        x1, x2 = ctx["valid_pool"][0:100]
+        x1 = torch.from_numpy(x1).to(dev)
+        x2 = torch.from_numpy(x2).to(dev)
+        cfg = ctx["cfg"]
+        for fn, x in ((cca_model.embed_view1,
+                       engine.prepare_view1_device(x1, cfg)),
+                      (cca_model.embed_view2,
+                       engine.prepare_view2_device(x2))):
+            err = float((fn(loaded, x, cfg) - fn(refined, x, cfg))
+                        .abs().max())
+            assert err <= 1e-5, err
+    ab = out["serving_ab"]
+    assert sorted(ab) == ["bfloat16", "float32"]
+    assert all(ab[d]["n"] == 60 for d in ab), ab
+    row = dict(seconds=seconds, argv=CAPSTONE_ARGV, entities=out["entities"],
+               train_secs=out["train_secs"], val_mrr=out["val_mrr"],
+               chance_mrr=chance_mrr(n_va),
+               epochs=[dict(number=r["number"], train_loss=r["train_loss"],
+                            map_va=r["map_va"],
+                            updates_per_s=r["updates_per_s"])
+                       for r in recs],
+               s2a=out["s2a"], a2s=out["a2s"],
+               s2a_refined=out["s2a_refined"],
+               a2s_refined=out["a2s_refined"],
+               serving_rank1={d: ab[d]["rank1"] for d in ab},
+               serving_rank5={d: ab[d]["rank5"] for d in ab},
+               checkpoint_reads_back=True)
+    emit("scale", check="a. capstone", **row)
+    return row
+
+
+def tutorial_audio(read_audio, path):
+    """``read_audio(path)`` of the tutorial mp3 where libmpg123 decodes it,
+    else the committed decode of it (``TUTORIAL_AUDIO``) at 22,050 Hz ->
+    (signal, rate, what was read)."""
+    try:
+        sig, sr = read_audio(path)
+        return sig, sr, "mp3"
+    except RuntimeError:
+        with np.load(TUTORIAL_AUDIO) as z:
+            return (z["signal"], int(z["sample_rate"]),
+                    os.path.relpath(TUTORIAL_AUDIO, os.path.dirname(
+                        os.path.abspath(__file__))))
+
+
+def pyplot_stand_in():
+    """A stand-in ``matplotlib`` for a machine without it, enough for the
+    tutorial's plotting cell: ``imshow`` keeps the image and ``savefig``
+    writes it as a gray PNG (``utils.image_io``, min to max over 0-255);
+    labels and the colour bar are dropped -> {module name: module}."""
+    import types
+
+    from audio_sheet_retrieval_tpu_torch.utils.image_io import imwrite_gray
+
+    shown = {}
+    plt = types.ModuleType("matplotlib.pyplot")
+
+    def imshow(img, **kw):
+        shown["img"] = np.asarray(img, np.float64)
+
+    def savefig(path, **kw):
+        img = shown["img"]
+        span = max(float(img.max() - img.min()), 1e-12)
+        imwrite_gray(path, np.round(255 * (img - img.min()) / span)
+                     .astype(np.uint8))
+
+    plt.imshow, plt.savefig = imshow, savefig
+    plt.xlabel = plt.ylabel = plt.colorbar = lambda *a, **k: None
+    mpl = types.ModuleType("matplotlib")
+    mpl.use = lambda *a, **k: None
+    mpl.pyplot = plt
+    return {"matplotlib": mpl, "matplotlib.pyplot": plt}
+
+
+def run_notebook(name: str, device: str = "cuda") -> dict:
+    """The notebook's code cells in one namespace, the first code cell's
+    ``device = "cuda"`` set to ``device``, from a temporary working
+    directory (the figure is saved there) -> the namespace."""
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.utils import audio_io
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tutorials", name)) as fp:
+        cells = ["".join(c["source"]) for c in json.load(fp)["cells"]
+                 if c["cell_type"] == "code"]
+    assert cells[0].count('device = "cuda"') == 1
+    cells[0] = cells[0].replace('device = "cuda"', f"device = {device!r}")
+    ns, real = {}, audio_io.read_audio
+    read = {}
+
+    def read_audio(path):
+        if path != assets.tutorial_audio_path():
+            return real(path)
+        sig, sr, read["audio"] = tutorial_audio(real, path)
+        return sig, sr
+
+    try:
+        import matplotlib  # noqa: F401
+        stand_in = {}
+    except ImportError:
+        stand_in = pyplot_stand_in()
+    cwd = os.getcwd()
+    audio_io.read_audio = read_audio
+    sys.modules.update(stand_in)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            for i, cell in enumerate(cells):
+                exec(compile(cell, f"{name}:cell{i}", "exec"), ns)
+            ns["_figure_saved"] = os.path.exists("distances.png")
+    finally:
+        os.chdir(cwd)
+        audio_io.read_audio = real
+        for key in stand_in:
+            del sys.modules[key]
+    ns["_audio_read"] = read.get("audio")
+    ns["_pyplot"] = "stand-in" if stand_in else "matplotlib"
+    return ns
+
+
+def scale_notebooks(torch, ctx, count) -> dict:
+    """20b. Both tutorial notebooks' cells on the card with the CPU tests'
+    thresholds (the path-versus-time correlation > 0.97; diagonal < 0.1 and
+    off-diagonal > 0.5); the first 10 sheet and spectrogram codes within
+    1e-4 of the port's CPU codes for the same snippets and excerpts."""
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.retrieval.server import (
+        slice_windows,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        RetrievalWrapper,
+    )
+
+    rows = {}
+    for name in NOTEBOOKS:
+        t0 = time.perf_counter()
+        ns, _ = count(lambda: quiet(lambda: run_notebook(
+            name, str(ctx["dev"]))))
+        seconds = time.perf_counter() - t0
+        assert ns["wrapper"].device == ctx["dev"], ns["wrapper"].device
+        cpu = RetrievalWrapper(ns["cfg"],
+                               param_file=assets.tutorial_checkpoint_path(),
+                               device="cpu")
+        dists = ns["dists"]
+        if "sheet_codes" in ns:
+            am = np.argmin(dists, axis=0)
+            corr = float(np.corrcoef(np.arange(dists.shape[1]), am)[0, 1])
+            assert corr > 0.97, corr
+            assert ns["_figure_saved"]
+            pairs = ((ns["sheet_codes"][:10],
+                      cpu.compute_view_1(ns["snippets"][:10])),
+                     (ns["spec_codes"][:10],
+                      cpu.compute_view_2(ns["excerpts"][:10])))
+            row = dict(corr=corr, systems=len(ns["page_systems"]))
+        else:
+            diag = float(np.diag(dists).mean())
+            offdiag = float(dists[~np.eye(len(dists), dtype=bool)].mean())
+            assert diag < 0.1 and offdiag > 0.5, (diag, offdiag)
+            pairs = ((ns["codes_a"][:10], cpu.compute_view_2(slice_windows(
+                ns["spec"], 42, ns["starts"][:10]))),)
+            row = dict(diag=diag, offdiag=offdiag)
+        errs = [float(np.abs(card - host).max()) for card, host in pairs]
+        assert max(errs) <= NOTEBOOK_CODES_ATOL, errs
+        rows[name] = dict(row, seconds=seconds, codes_vs_cpu=errs,
+                          audio=ns["_audio_read"], pyplot=ns["_pyplot"])
+    emit("scale", check="b. notebooks", **rows)
+    return rows
+
+
+def scale_cont_fit(torch, ctx, count) -> dict:
+    """20c. A ``CONT_EPOCHS``-epoch ``mutopia_ccal_cont`` fit (160 x 200
+    sheet input, the ``cont`` arm of the schedule rehearsal) at full width
+    over phase 11's pieces lifted onto device pools, under deterministic
+    cuDNN: phase 11's thresholds held by the MRR of the params ``fit``
+    returns (its best epoch: above epoch 1's and twice chance; the train
+    loss falls), every epoch reported, and the step's updates/s."""
+    from audio_sheet_retrieval_tpu_torch.data import device_pool as dp
+    from audio_sheet_retrieval_tpu_torch.models import cca_model
+    from audio_sheet_retrieval_tpu_torch.models.configs import (
+        get_model_config,
+    )
+    from audio_sheet_retrieval_tpu_torch.train import engine
+
+    dev = ctx["dev"]
+    cfg = get_model_config("mutopia_ccal_cont", max_epochs=CONT_EPOCHS)
+    host = ctx["train_data"]
+    data = dict(host, train=dp.from_host_pool(
+        host["train"], rng=np.random.default_rng(23), device=dev),
+        valid=dp.from_host_pool(host["valid"], shuffle=False,
+                                rng=np.random.default_rng(24), device=dev))
+    recs, launches = [], {}
+
+    def run():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = engine.fit(
+                cca_model.init_model(torch.Generator().manual_seed(23), cfg,
+                                     device="cpu"),
+                data, cfg,
+                dp.DeviceBatchIterator(cfg.batch_size,
+                                       k_samples=cfg.k_samples),
+                dp.DeviceBatchIterator(cfg.batch_size, shuffle=False,
+                                       train=False),
+                device=dev, out_path=tmp, verbose=False,
+                on_epoch=recs.append)
+        launches.update(read_launches())
+        return out
+
+    t0 = time.perf_counter()
+    with deterministic(torch):
+        _, best_map = count(run)
+    seconds = time.perf_counter() - t0
+    n_va = data["valid"].shape[0]
+    assert len(recs) == CONT_EPOCHS, recs
+    assert all(np.isfinite(r["train_loss"]) for r in recs), recs
+    assert recs[-1]["train_loss"] < recs[0]["train_loss"], recs
+    assert best_map == max(r["map_va"] for r in recs), (best_map, recs)
+    assert best_map > recs[0]["map_va"], recs
+    assert best_map > 2 * chance_mrr(n_va), recs
+    assert launches["topk_gallery"] >= 2 * CONT_EPOCHS, launches
+    row = dict(model=cfg.name, seconds=seconds, best_map=best_map,
+               chance_mrr=chance_mrr(n_va), valid=n_va,
+               epochs=[dict(number=r["number"], train_loss=r["train_loss"],
+                            map_va=r["map_va"], n_batches=r["n_batches"],
+                            updates_per_s=r["updates_per_s"],
+                            step_loop_s=r["loop_seconds"],
+                            eval_s=r["eval_seconds"]) for r in recs])
+    emit("scale", check="c. cont fit", **row)
+    return row
+
+
+def phase_scale(torch, ctx):
+    """20. The scale runs and the tutorials, cut to a smoke run: a. the
+    capstone script, b. both tutorial notebooks, c. a ``cont`` fit; each
+    counted."""
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in read_launches()}
+    count = launch_counter(launches)
+    capstone = scale_capstone(torch, ctx, count)
+    assert launches["topk_gallery"] > 0, "the capstone ran no top-k kernel"
+    notebooks = scale_notebooks(torch, ctx, count)
+    cont = scale_cont_fit(torch, ctx, count)
+    ctx["scale"] = dict(capstone=capstone, notebooks=notebooks, cont=cont)
+    emit("scale", launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 RANK_SCENARIOS = {"fit": rank_gloo, "nccl_fit": rank_nccl,
                   "gallery": rank_gallery}
 
@@ -4727,7 +5076,7 @@ def main() -> int:
                       phase_eval_refine, phase_train, phase_device_pool,
                       phase_precision, phase_alignment, phase_omr,
                       phase_reports, phase_mesh, phase_gallery,
-                      phase_wire, phase_experiments):
+                      phase_wire, phase_experiments, phase_scale):
             for name, n in phase(torch, ctx).items():
                 launches[name] += n
     rows = []

@@ -25,6 +25,7 @@ measured: equal).
 import dataclasses
 import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -193,6 +194,58 @@ def test_fit_over_device_pool_matches_jax_decisions(tmp_path):
         np.testing.assert_allclose(tcurves[key], jcurves[key], atol=1e-3)
     np.testing.assert_allclose(tcurves["pred_tr_err"],
                                jcurves["pred_tr_err"], rtol=1e-3)
+
+
+# the shipped learning rate at PARITY's widths: patience beyond the run,
+# so no refinement restart triggers and the lr stays 2e-3
+SHIPPED_LR = dict(PARITY, ini_learning_rate=2e-3, patience=100,
+                  refinement_steps=0, max_epochs=4)
+
+
+def test_fit_at_the_shipped_learning_rate_tracks_jax(tmp_path, monkeypatch):
+    """Four epochs (eight steps) of both packages' ``fit`` at lr 2e-3 over
+    their device pools under ``NO_AUGMENT`` (no random draw enters a
+    batch): the same epochs and lr curve, the same improvement decisions,
+    and the curves within tolerances measured on this run (JAX / port,
+    largest difference over the four epochs, and the bound held, about
+    twice it):
+
+    - train loss: 0.2831 / 0.2724 at epoch 3, 3.8 % (epoch 1: 0.1 %,
+      epoch 2: 0.4 %, epoch 4: 4.9 %); held to rtol 0.1;
+    - valid loss: 4.7e-5 at epoch 3; held to atol 1e-4;
+    - train and valid MRR: 1.2e-3 (map_tr, epoch 3); held to atol 2.5e-3.
+
+    The difference is float32 arithmetic amplified by Adam: one step is
+    held to JAX at 2e-3 (``tests/test_torch_train.py``), and here the
+    epoch-1 losses agree to 1e-3 and the gap grows with each step, as
+    Adam turns gradients near zero with other signs in the two packages
+    into updates of lr in opposite directions. It does not keep growing:
+    over eight epochs the train losses stay within 2e-2 of each other
+    (about 8 %). At these widths both stay at chance MRR (about 0.078 for
+    60 pairs); the learning curves at the published widths are
+    ``scripts/compare_fit_curves.py``'s."""
+    monkeypatch.setattr(sys.modules[__name__], "PARITY", SHIPPED_LR)
+    runs = parity_runs(
+        tmp_path, lifted_parity_data,
+        lambda it, dp: (dp.DeviceBatchIterator(20, k_samples=40),
+                        dp.DeviceBatchIterator(20, shuffle=False,
+                                               train=False)))
+    (jrecs, _, jcurves, _), (trecs, _, tcurves, _) = \
+        runs["jax"], runs["port"]
+    assert [r["number"] for r in trecs] == [1, 2, 3, 4]
+    assert [r["number"] for r in jrecs] == [1, 2, 3, 4]
+    assert tcurves["lr"] == jcurves["lr"] == [2e-3] * 4
+    for t, j in zip(trecs, jrecs):
+        np.testing.assert_allclose(t["train_loss"], j["train_loss"],
+                                   rtol=0.1)
+        np.testing.assert_allclose(t["valid_loss"], j["valid_loss"],
+                                   atol=1e-4)
+        np.testing.assert_allclose(t["map_va"], j["map_va"], atol=2.5e-3)
+        np.testing.assert_allclose(t["map_tr"], j["map_tr"], atol=2.5e-3)
+    improved = [[m >= max([0.0] + c["map_val"][:i])
+                 for i, m in enumerate(c["map_val"])]
+                for c in (tcurves, jcurves)]
+    assert improved[0] == improved[1]
 
 
 @pytest.mark.parametrize("fit_cca", [False, True])

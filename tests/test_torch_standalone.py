@@ -86,6 +86,47 @@ def test_port_sources_are_found():
                             *module.split("/")) in names, module
 
 
+PORT_NOTEBOOKS = sorted(glob.glob(os.path.join(REPO, "tutorials",
+                                               "torch_*.ipynb")))
+
+
+def _notebook_imports(path):
+    """The imported roots of every code cell of a notebook."""
+    import json
+
+    with open(path) as fp:
+        cells = json.load(fp)["cells"]
+    for i, cell in enumerate(cells):
+        if cell["cell_type"] != "code":
+            continue
+        tree = ast.parse("".join(cell["source"]), filename=f"{path}:{i}")
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                for alias in node.names:
+                    yield alias.name.split(".")[0]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_NOTEBOOKS,
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_notebooks_import_neither_jax_nor_cv2(path):
+    """The port's tutorials (``tutorials/torch_*.ipynb``): no ``jax``, no
+    ``cv2``, nothing of the JAX package in any code cell."""
+    roots = set(_notebook_imports(path))
+    assert "audio_sheet_retrieval_tpu_torch" in roots
+    bad = roots & {"audio_sheet_retrieval_tpu", "jax", "jaxlib", "cv2",
+                   "PIL", "torchvision", "skimage"}
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
+
+
+def test_port_notebooks_are_found():
+    assert [os.path.basename(p) for p in PORT_NOTEBOOKS] == [
+        "torch_Embedding_Tutorial.ipynb",
+        "torch_Embedding_Tutorial_Audio_to_Audio.ipynb"]
+    assert os.path.join(REPO, "scripts", "torch_capstone.py") in PORT_SOURCES
+
+
 @pytest.mark.parametrize("name", sorted(jconfigs.MODEL_REGISTRY))
 def test_model_configs_field_for_field(name):
     assert sorted(tconfigs.MODEL_REGISTRY) == sorted(jconfigs.MODEL_REGISTRY)
@@ -191,6 +232,7 @@ def test_retrieval_pool_windows_bit_for_bit(pieces, contexts):
         jimg, jspec, jo2c, data_augmentation=jpools.NO_AUGMENT,
         shuffle=False, **contexts)
     assert tpools.NO_AUGMENT == jpools.NO_AUGMENT
+    assert tpools.FULL_AUGMENT == jpools.FULL_AUGMENT
     tpool = tpools.AudioScoreRetrievalPool(
         jimg, jspec, jo2c, data_augmentation=tpools.NO_AUGMENT,
         shuffle=False, **contexts)
