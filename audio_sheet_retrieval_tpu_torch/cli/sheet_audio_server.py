@@ -55,9 +55,9 @@ def build_arg_parser():
     parser.add_argument("--conv_precision", default=None,
                         choices=["highest", "high", "default"],
                         help="f32 conv precision: 'highest' or 'high' "
-                             "(both full f32, TF32 off: see "
-                             "cca_model.check_numerics); 'default' is not "
-                             "ported")
+                             "(both full f32, TF32 off), or 'default' (each "
+                             "conv one TF32 pass on the card, float32 on "
+                             "the CPU); see cca_model.check_numerics")
     parser.add_argument("--exp_root", type=str, default=None)
     parser.add_argument("--param_file", type=str, default=None)
     parser.add_argument("--db_file", type=str, default="audio_db_file.pkl")

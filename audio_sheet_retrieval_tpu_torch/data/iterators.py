@@ -3,7 +3,8 @@
 The port's own copy of the JAX package's ``data/iterators.py``
 (reference:utils/batch_iterators.py): ``MultiviewPoolIteratorUnsupervised``
 (k_samples sub-epochs, wrap-around batch fill, reshuffle after a full pool
-pass, :163-221), a threaded prefetch generator (:114-141) and the zero-pad
+pass, :163-221), its three-view variant (:224-283), a threaded prefetch
+generator (:114-141) and the zero-pad
 batched-compute utilities (:17-111). Batches are numpy arrays; the training
 loop uploads them to its device.
 """
@@ -139,6 +140,48 @@ class MultiviewPoolIteratorUnsupervised:
                 zb = np.concatenate((zb, z_con))
             yield self.prepare(xb, zb)
 
+        self.epoch_counter += 1
+        if self.shuffle and (idx_epoch + 1) == self.n_epochs:
+            self.pool.reset_batch_generator()
+
+
+class TripleviewPoolIteratorUnsupervised:
+    """Three-view variant (batch_iterators.py:224-283): the pool's
+    ``[sl]`` gives three arrays."""
+
+    def __init__(self, batch_size: int, prepare: Optional[Callable] = None,
+                 k_samples: Optional[int] = None, shuffle: bool = True):
+        self.batch_size = batch_size
+        if prepare is None:
+            def prepare(x, y, z):
+                return x, y, z
+        self.prepare = prepare
+        self.shuffle = shuffle
+        self.k_samples = k_samples
+        self.epoch_counter = 0
+        self.n_epochs = None
+
+    def __call__(self, pool):
+        self.pool = pool
+        if self.k_samples is None or self.k_samples > pool.shape[0]:
+            self.k_samples = pool.shape[0]
+        self.n_batches = self.k_samples // self.batch_size
+        self.n_epochs = max(1, pool.shape[0] // self.k_samples)
+        return self
+
+    def __iter__(self):
+        bs = self.batch_size
+        idx_epoch = self.epoch_counter % self.n_epochs
+        for i in range((self.k_samples + bs - 1) // bs):
+            sl = slice(i * bs + idx_epoch * self.k_samples,
+                       (i + 1) * bs + idx_epoch * self.k_samples)
+            xb, zb, wb = self.pool[sl]
+            if xb.shape[0] < bs:
+                x_con, z_con, w_con = self.pool[0:bs - xb.shape[0]]
+                xb = np.concatenate((xb, x_con))
+                zb = np.concatenate((zb, z_con))
+                wb = np.concatenate((wb, w_con))
+            yield self.prepare(xb, zb, wb)
         self.epoch_counter += 1
         if self.shuffle and (idx_epoch + 1) == self.n_epochs:
             self.pool.reset_batch_generator()

@@ -59,16 +59,17 @@ class ModelParams(NamedTuple):
 
 
 def check_numerics(cfg: ModelConfig) -> str:
-    """``cfg``'s numerics -> the encoder mode (``encoder.HIGHEST`` or
-    ``BF16``), as the JAX package reads them (models/encoder.py:71-91):
-    ``compute_dtype="bfloat16"`` ignores ``conv_precision``. In float32,
-    "highest" and "high" both run full float32 (TF32 off): the JAX
-    package's HIGH promises about 1e-6 relative (bf16x3 on the TPU), which
-    float32 meets, and XLA's CPU runs it as float32 too; on an H100 a
-    TF32 split costs more than one float32 conv and adds error. The CCA
-    head and ``length_norm`` are float32 in every mode.
-    ``conv_precision="default"`` (one bf16 pass on the TPU) is not ported:
-    ROADMAP "Not to port" lists it as dominated."""
+    """``cfg``'s numerics -> the encoder mode (``encoder.HIGHEST``,
+    ``TF32`` or ``BF16``), as the JAX package reads them
+    (models/encoder.py:71-91): ``compute_dtype="bfloat16"`` ignores
+    ``conv_precision``. In float32, "highest" and "high" both run full
+    float32 (TF32 off): the JAX package's HIGH promises about 1e-6
+    relative (bf16x3 on the TPU), which float32 meets, and XLA's CPU runs
+    it as float32 too; on an H100 a TF32 split costs more than one float32
+    conv and adds error. "default" runs each conv as one TF32 pass on a
+    card (``encoder.TF32``), as XLA's GPU backend runs DEFAULT, and as
+    float32 on the CPU, as XLA's CPU does. The CCA head and
+    ``length_norm`` are float32 in every mode."""
     if cfg.compute_dtype == "bfloat16":
         return enc.BF16
     if cfg.compute_dtype != "float32":
@@ -77,9 +78,7 @@ def check_numerics(cfg: ModelConfig) -> str:
     if cfg.conv_precision in ("highest", "high"):
         return enc.HIGHEST
     if cfg.conv_precision == "default":
-        raise NotImplementedError(
-            "conv_precision='default' is not ported (ROADMAP.md, \"Not to "
-            "port\": dominated, PARITY #16); use 'highest' or 'high'")
+        return enc.TF32
     raise ValueError(f"conv_precision must be 'highest', 'high' or "
                      f"'default', got {cfg.conv_precision!r}")
 

@@ -39,10 +39,21 @@ a mode string that ``cca_model.check_numerics`` maps a config onto (its
   another model at bf16 resolution. ``BF16_FOLDED`` is that other model,
   the JAX ``encoder_apply_folded`` form its ``RetrievalWrapper`` serves:
   the folded kernel cast to bf16, the folded bias added after widening.
+* ``TF32``, the JAX package's ``conv_precision="default"`` in float32:
+  each conv (forward and, in training, both gradients) one TF32 pass on
+  the tensor cores, as XLA's GPU backend runs a DEFAULT float32 conv;
+  everything else as ``HIGHEST``. TF32 is switched on for cuDNN around
+  each conv only (``tf32_convs``), so a ``HIGHEST`` model in the same
+  process stays full float32. The flag lets cuDNN use TF32; it picks each
+  conv's algorithm, and on an H100 the convs with one input channel, the
+  second scale's 48-to-48 conv and the 1x1 block keep float32's error
+  (``chip_smoke.py`` phase 13e reports each block's). The CPU has no
+  TF32: there the mode computes float32, as XLA's CPU runs DEFAULT.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,9 +64,10 @@ from torch import nn
 N_CONV_BLOCKS = 9  # 8x 3x3 + 1x 1x1
 
 HIGHEST = "highest"
+TF32 = "tf32"
 BF16 = "bfloat16"
 BF16_FOLDED = "bfloat16_folded"
-MODES = (HIGHEST, BF16, BF16_FOLDED)
+MODES = (HIGHEST, TF32, BF16, BF16_FOLDED)
 
 
 def block_channels(num_filters: int, dim_latent: int) -> List[int]:
@@ -67,6 +79,51 @@ def pin_full_f32() -> None:
     """Full float32 for cuDNN convolutions and cuBLAS matmuls (no TF32)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def tf32_convs(x: torch.Tensor):
+    """cuDNN convolutions in TF32 inside the block, the previous setting
+    restored on the way out; the other cuDNN flags (``enabled``,
+    ``benchmark``, ``deterministic``) and the matmul flag are left as they
+    are. ``x`` is the conv's input: on a CUDA tensor that cuDNN would not
+    take (cuDNN switched off, an unsupported dtype), the conv would run
+    full float32 elsewhere, so this raises instead."""
+    if x.is_cuda and not torch.backends.cudnn.is_acceptable(x):
+        raise RuntimeError(
+            f"a TF32 conv needs cuDNN, which does not take this "
+            f"{x.dtype} tensor (torch.backends.cudnn.enabled="
+            f"{torch.backends.cudnn.enabled})")
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class TF32Conv(torch.autograd.Function):
+    """``F.conv2d(x, w, padding=pad)`` (stride 1, no bias) in TF32, its
+    input and weight gradients too: autograd runs a backward outside any
+    scope around the forward, so the backward enters ``tf32_convs``
+    itself (JAX's DEFAULT carries into the conv's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, w, pad: int):
+        ctx.save_for_backward(x, w)
+        ctx.pad = pad
+        with tf32_convs(x):
+            return F.conv2d(x, w, padding=pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with tf32_convs(g):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [1, 1], [ctx.pad, ctx.pad], [1, 1], False,
+                [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
 
 
 def pools_after(i: int) -> bool:
@@ -98,6 +155,9 @@ class ConvBlock(nn.Module):
         pad = self.w.shape[-1] // 2
         if mode == HIGHEST:
             return F.conv2d(x, self.w, self.b, padding=pad)
+        if mode == TF32:
+            with tf32_convs(x):
+                return F.conv2d(x, self.w, self.b, padding=pad)
         x16 = x.to(torch.bfloat16)
         if mode == BF16:
             # BN of the widened raw output, (h - mean) * s + beta, as
@@ -234,8 +294,10 @@ class TrainEncoder(nn.Module):
                              padding=pad).float()
             elif mode == HIGHEST:
                 h = F.conv2d(h, blk.w, padding=pad)
+            elif mode == TF32:
+                h = TF32Conv.apply(h, blk.w, pad)
             else:
-                raise ValueError(f"mode must be one of {MODES[:2]}, got "
+                raise ValueError(f"mode must be one of {MODES[:3]}, got "
                                  f"{mode!r}")
             if stats is None:
                 mu, inv_std = blk.mean, blk.inv_std

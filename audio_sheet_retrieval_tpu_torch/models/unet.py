@@ -22,7 +22,11 @@ package's ``_tconv2x2`` einsum.
 Numerics (the JAX package's ``unet_apply`` arms, chosen by
 ``check_numerics``): float32 for ``conv_precision`` "highest" and "high",
 both at full float32 with TF32 off (``encoder.pin_full_f32``), as the
-retrieval encoders map them; "default" in float32 raises. bfloat16 runs
+retrieval encoders map them; "default" in float32 runs every conv, the
+transposed ones and the head's as one TF32 pass on a card
+(``encoder.tf32_convs`` around the forward; JAX's ``_tconv2x2`` einsum
+carries no precision, so it is DEFAULT in every JAX arm, while the port's
+highest arm keeps it full float32) and float32 on the CPU. bfloat16 runs
 the whole pipeline in bf16 (convs accumulate in f32 and round their output
 to bf16; BN terms cast to bf16); the head's bias and the sigmoid are
 float32.
@@ -38,7 +42,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audio_sheet_retrieval_tpu_torch.models.encoder import pin_full_f32
+from audio_sheet_retrieval_tpu_torch.models.encoder import (
+    pin_full_f32,
+    tf32_convs,
+)
 
 N_ENC_BLOCKS = 8
 N_DEC_STAGES = 3
@@ -55,10 +62,6 @@ def check_numerics(compute_dtype: str, conv_precision: str) -> torch.dtype:
     if conv_precision not in ("highest", "high", "default"):
         raise ValueError(f"conv_precision must be 'highest', 'high' or "
                          f"'default', got {conv_precision!r}")
-    if compute_dtype == "float32" and conv_precision == "default":
-        raise NotImplementedError(
-            "conv_precision='default' in float32 is not ported (ROADMAP.md, "
-            "\"Not to port\"); use 'highest' or 'high', or bfloat16")
     return _DTYPES[compute_dtype]
 
 
@@ -154,6 +157,8 @@ class UNet(nn.Module):
         self.dtype = check_numerics(compute_dtype, conv_precision)
         self.compute_dtype = compute_dtype
         self.conv_precision = conv_precision
+        # float32 "default": the convs in TF32 (one pass on a card)
+        self.tf32 = (compute_dtype, conv_precision) == ("float32", "default")
         device = torch.device(device)
         if device.type == "cuda":
             pin_full_f32()
@@ -201,6 +206,12 @@ class UNet(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor, return_intermediates: bool = False):
         h = x.to(self.dtype)
+        if self.tf32:
+            with tf32_convs(h):
+                return self._forward(h, return_intermediates)
+        return self._forward(h, return_intermediates)
+
+    def _forward(self, h: torch.Tensor, return_intermediates: bool):
         skips: List[torch.Tensor] = []
         inter: Dict[str, torch.Tensor] = {}
         for i, blk in enumerate(self.enc):

@@ -16,10 +16,12 @@ Conventions (the JAX module's, so the counts are the same):
 
 Peaks. ``CHIP_PEAKS`` is keyed by lower-case substrings of the device name
 (``torch.cuda.get_device_name()``, or a JAX ``device_kind``). The NVIDIA
-entries are the H100 data sheet's dense rates: bf16 on the tensor cores,
-and float32 on the CUDA cores, where the port's float32 runs (TF32 off,
-``models.encoder.pin_full_f32``; ``conv_precision="high"`` runs as full
-float32 too, ``cca_model.check_numerics``). The TPU entries keep the JAX
+entries are the H100 data sheet's dense rates: bf16 and TF32 on the
+tensor cores, and float32 on the CUDA cores, where the port's float32
+runs at ``conv_precision`` "highest" and "high" (TF32 off,
+``models.encoder.pin_full_f32``; ``cca_model.check_numerics``); its
+"default" runs the convs as one TF32 pass, so an MFU of that arm is
+reckoned against the TF32 peak. The TPU entries keep the JAX
 module's figures and its model of float32 as bf16xN MXU passes, so a TPU
 name answers as the JAX module does. The JAX module's MXU packing bound (a
 128-lane systolic-array layout bound) has no counterpart on a GPU and is
@@ -36,7 +38,8 @@ from audio_sheet_retrieval_tpu_torch.models.encoder import (
     block_channels,
 )
 
-_H100_SXM = {"bf16_flops": 989e12, "f32_flops": 67e12,
+_H100_SXM = {"bf16_flops": 989e12, "tf32_flops": 494.7e12,
+             "f32_flops": 67e12,
              "hbm_bytes_per_s": 3.35e12, "hbm_bytes": 80e9,
              "name": "NVIDIA H100 SXM"}
 
@@ -47,7 +50,8 @@ _H100_SXM = {"bf16_flops": 989e12, "f32_flops": 67e12,
 CHIP_PEAKS: Dict[str, Dict[str, float]] = {
     "h100 80gb hbm3": _H100_SXM,
     "h100 sxm": _H100_SXM,
-    "h100 pcie": {"bf16_flops": 756e12, "f32_flops": 51e12,
+    "h100 pcie": {"bf16_flops": 756e12, "tf32_flops": 378e12,
+                  "f32_flops": 51e12,
                   "hbm_bytes_per_s": 2.0e12, "hbm_bytes": 80e9,
                   "name": "NVIDIA H100 PCIe"},
     "v5 lite": {"bf16_flops": 197e12, "int8_ops": 394e12,
@@ -124,9 +128,9 @@ def effective_peak_flops(device_kind: str, compute_dtype: str,
                          conv_precision: str) -> Optional[float]:
     """Peak FLOP/s of the device for the given dtype / precision arm, None
     for an unknown device. On an NVIDIA card: bf16 on the tensor cores;
-    float32 at ``highest`` or ``high`` on the CUDA cores; ``"default"``
-    raises, as the port's models do. On a TPU: the bf16 peak over the
-    emulation passes (the JAX module's arithmetic)."""
+    float32 at ``highest`` or ``high`` on the CUDA cores, at ``default``
+    the TF32 tensor-core rate. On a TPU: the bf16 peak over the emulation
+    passes (the JAX module's arithmetic)."""
     peaks = chip_peaks(device_kind)
     if peaks is None:
         return None
@@ -136,9 +140,10 @@ def effective_peak_flops(device_kind: str, compute_dtype: str,
         return peaks["bf16_flops"] / F32_PASSES.get(conv_precision, 6)
     if conv_precision in ("highest", "high"):
         return peaks["f32_flops"]
-    raise ValueError(
-        f"conv_precision={conv_precision!r}: the port runs float32 at "
-        "'highest' or 'high' only (see cca_model.check_numerics)")
+    if conv_precision == "default":
+        return peaks["tf32_flops"]
+    raise ValueError(f"conv_precision must be 'highest', 'high' or "
+                     f"'default', got {conv_precision!r}")
 
 
 def mfu(achieved_flops_per_s: float, device_kind: str, compute_dtype: str,

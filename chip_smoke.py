@@ -97,7 +97,7 @@ exits non-zero):
    11's; kill and resume over device pools bit for bit; ``run_train``
    without flags, the run reporting the device pool.
 
-13. precision: the JAX package's other two numerics on phase 4's corpus
+13. precision: the JAX package's other three numerics on phase 4's corpus
    and checkpoint at full width. a. ``compute_dtype="bfloat16"`` gallery
    builds in the JAX bench's three serving arms (exact, ``gather_half``,
    fullconv): sheet emb/s, rank<=1 >= 59/60 each, the top-1 piece equal to
@@ -120,6 +120,27 @@ exits non-zero):
    bf16 held to phase 11's criteria (``run_eval``, which re-embeds the dump
    in float32, within 1e-2 of the MRR), the step's event ms, device busy
    and peak memory beside float32's.
+   e. ``conv_precision="default"`` in float32 (``encoder.TF32``: each
+   conv, forward and both gradients, one TF32 pass): the three builds'
+   codes farther than 1e-5 from highest's of the same arm (the builds ran
+   TF32) and nearer them than 13a's bf16 codes, rank<=1 >= 59/60 and the
+   top-1 piece equal to the float32 build's on >= 59 of 60 queries each,
+   kernel 1's ranks equal to the plain top-k's replay, kernel 2's float32
+   launches in the fullconv build each bit-identical to the plain
+   version; the audio DB and sheet -> audio (codes as above, rank<=1 at
+   least the JAX package's own count less one: its CPU ``default`` is
+   its highest bit for bit); each block's conv error from float64 in
+   highest, default and bf16; both TF32 flags off after every default
+   call and a float32 forward after a default one bit-identical to one
+   before it; one default step (loss within 1e-3 of the card's float32
+   step's, its gradient farther from a float64 step than the float32
+   step's and nearer than the CPU's bf16 step's: the backward ran TF32)
+   and a 3-epoch fit over device pools held to phase 11's criteria
+   (``run_eval --conv_precision default`` within 1e-3 of its MRR); OMR
+   on the tutorial page under 15b's bf16 gate against the float32 run,
+   the system map's u16 codes off float64 in the three modes. Reported:
+   each build's sheet emb/s, device ms and MFU against the TF32 peak,
+   query p50s, step ms, page ms, each beside highest's and bf16's.
 
 14. alignment: a. both DTW kernels (``csrc/dtw.cu``: the accumulation,
    which writes a direction code a cell and the accumulated costs when
@@ -294,17 +315,21 @@ exits non-zero):
 The launch counters are zeroed before phase 4 and read after phase 6, and
 zeroed before and read after each of phases 7-10 and each entry point of
 phases 11-16 (``fit``, ``run_eval``, the CLI, the resume runs, each build
-and query set of phase 13, each ``audio2sheet_align`` run of phase 14,
+and query set of phases 13 and 13e, each ``audio2sheet_align`` run of
+phase 14,
 each command line of phase 15, the traced query and each rank process of
 phases 16-17, whose counts its ranks report) and zeroed before phase
 18b and read after 18d, and around each of 19a, 19b and 20a-c; each of
-phases 4-13, 15, 16, 19 and 20 must launch the
+phases 4-13e, 15, 16, 19 and 20 must launch the
 top-k kernel, phase 17 on every rank, and phase 14 both DTW kernels once
 for each piece it aligns by ``pydtw``; phases 15 and 18b-d both rANS
-kernels, phase 17 the decode on every rank, 19a the gather kernel; the
+kernels, phase 17 the decode on every rank, 13e and 19a the gather
+kernel; the
 single-card references of phase 17, the checks of 18a and 19a's plain
 replay are not counted. The ``kernels`` line reports the sum over phases
-4-20 (kernel 2's bf16 launches of phases 13 and 19a among them), beside each kernel's times at the main path's shape
+4-20 (kernel 2's bf16 launches of phases 13 and 19a and its float32
+launches of 13e among them), beside each kernel's times at the main
+path's shape
 (top-k: Q = 100, N = 12,000, k = 25, and at a db shard's N = 6,000
 under ``db_shard``; gather: one 6040-px strip, float32,
 its bf16 times on a line of their own; DTW: one corpus piece, 860 x 604
@@ -1553,7 +1578,8 @@ def valid_npz(tmp, pieces):
 
 
 def learning_fit(torch, ctx, data, iters, count,
-                 run_eval_atol=FIT_MRR_ATOL, keep_curves=None):
+                 run_eval_atol=FIT_MRR_ATOL, keep_curves=None,
+                 run_eval_args=()):
     """A full-width ``fit`` of ``TRAIN_EPOCHS`` epochs over ``data`` with
     the iterators ``iters`` under deterministic algorithms (``deterministic``),
     held to the learning criteria: train loss
@@ -1561,8 +1587,9 @@ def learning_fit(torch, ctx, data, iters, count,
     NaN, kernel 1 launched at least twice an epoch; the last evaluation's
     ranks through kernel 1 equal the full argsort's, and the dump read back
     by ``run_eval`` gives the MRR ``fit`` reported (within
-    ``run_eval_atol``); the results curves are copied to ``keep_curves``
-    when given -> the fit's record."""
+    ``run_eval_atol``; ``run_eval_args`` added to its command line); the
+    results curves are copied to ``keep_curves`` when given -> the fit's
+    record."""
 
     from audio_sheet_retrieval_tpu_torch.cli import run_eval
     from audio_sheet_retrieval_tpu_torch.data import synthetic
@@ -1621,7 +1648,8 @@ def learning_fit(torch, ctx, data, iters, count,
             n_onsets=TRAIN_PIECES["n_onsets"]))
         ev = count(lambda: run_eval.main(
             ["--data", "npz:" + tmp, "--train_split", split, "--n_test",
-             str(n_va), "--param_file", dump, "--device", str(dev)]))
+             str(n_va), "--param_file", dump, "--device", str(dev)]
+            + list(run_eval_args)))
         assert abs(ev["map"] - best_map) <= run_eval_atol, (ev, best_map)
     return dict(epochs=recs, best_map=best_map, chance_mrr=chance,
                 run_eval_map=ev["map"], max_memory_allocated_mb=peak_mb,
@@ -2065,12 +2093,11 @@ def piece0_batches(torch, ctx):
     return x1, x2
 
 
-def high_conv_errors(torch, ctx, mode):
+def conv_errors(torch, ctx, modes):
     """Each block's conv of both views on its real inputs (piece 0's
-    batches), float32 highest and ``high`` (the block run in ``mode``,
-    what ``check_numerics`` maps ``high`` onto) against float64 on the
-    card: the largest error over the largest output -> rows (raises past
-    HIGH_CONV_ERR_RATIO)."""
+    batches) in each of ``modes`` (a name -> an encoder mode, the block run
+    as the eval encoder runs it) against float64 on the card: the largest
+    error over the largest output -> rows."""
     import torch.nn.functional as F
 
     params = ctx["params"]
@@ -2081,20 +2108,27 @@ def high_conv_errors(torch, ctx, mode):
                            ("view2", params.view2, x2)):
             for i, h in enumerate(block_inputs(torch, e, x)):
                 blk = e.blocks[i]
-                pad = blk.w.shape[-1] // 2
                 ref = F.conv2d(h.double(), blk.w.double(), blk.b.double(),
-                               padding=pad)
+                               padding=blk.w.shape[-1] // 2)
                 top = float(ref.abs().max())
-
-                def err(out):
-                    return float((out.double() - ref).abs().max()) / top
-
-                row = dict(view=view, block=i, input=list(h.shape),
-                           highest=err(F.conv2d(h, blk.w, blk.b,
-                                                padding=pad)),
-                           high=err(blk(h, mode)))
-                row["ratio"] = row["high"] / row["highest"]
+                row = dict(view=view, block=i, input=list(h.shape))
+                for name, mode in modes.items():
+                    row[name] = float((blk(h, mode).double() - ref).abs()
+                                      .max()) / top
                 rows.append(row)
+    return rows
+
+
+def high_conv_errors(torch, ctx, mode):
+    """``conv_errors`` of float32 highest and ``high`` (the block run in
+    ``mode``, what ``check_numerics`` maps ``high`` onto) -> rows with
+    their ratio (raises past HIGH_CONV_ERR_RATIO)."""
+    from audio_sheet_retrieval_tpu_torch.models import encoder
+
+    rows = conv_errors(torch, ctx, {"highest": encoder.HIGHEST,
+                                    "high": mode})
+    for row in rows:
+        row["ratio"] = row["high"] / row["highest"]
     assert not torch.backends.cudnn.allow_tf32
     worst = max(r["ratio"] for r in rows)
     assert worst <= HIGH_CONV_ERR_RATIO, rows
@@ -2189,10 +2223,10 @@ def phase_precision(torch, ctx):
         finally:
             win.gather_feature_windows.recorded = None
 
-    bf16 = {}
+    bf16, bf16_gals = {}, {}
     for arm, kw in arms.items():
         t0 = time.perf_counter()
-        gal = count(lambda: build(kw))
+        gal = bf16_gals[arm] = count(lambda: build(kw))
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         acc = count(lambda: accuracy.piece_id_accuracy(
@@ -2214,6 +2248,10 @@ def phase_precision(torch, ctx):
             f32_query_p50_ms=f32.get("query_p50_ms"))
         emit("precision", check="a. bf16 build", arm=arm, **bf16[arm])
     ctx["bf16_builds"] = bf16
+    # phase 13e's references: each arm's float32 and bf16 builds, and the
+    # float32 builds' top-1 pieces
+    ctx["f32_gals"], ctx["f32_top"] = f32_gals, f32_top
+    ctx["bf16_gals"] = bf16_gals
     for arm, row in bf16.items():    # >= 59 of 60 each
         assert row["n"] == n_pieces and row["rank1"] >= n_pieces - 1, \
             (arm, row)
@@ -2266,6 +2304,7 @@ def phase_precision(torch, ctx):
                query_p50_ms=float(np.percentile(lat, 50) * 1000),
                jax_cpu_rank1_bf16=JAX_S2A_RANK1_BF16, f32=ctx["s2a"])
     emit("precision", check="b. bf16 sheet -> audio", **s2a)
+    ctx["bf16_s2a"] = s2a
     assert s2a["rank1"] >= JAX_S2A_RANK1_BF16 - 1, s2a
     assert s2a["codes_max_abs_diff_f32"] > BF16_CODES_MIN_DIFF, s2a
 
@@ -2330,6 +2369,7 @@ def phase_precision(torch, ctx):
                                                             f64["grads"]))
     emit("precision", check="d. one bf16 step, card vs cpu vs float64",
          batch=cfg.batch_size, **step)
+    ctx["bf16_step"] = step
     assert step["loss_rel_card_vs_cpu"] <= BF16_STEP_LOSS_RTOL, step
     assert step["grad_rel_l2_card_vs_float64"] <= BF16_STEP_GRAD_RATIO * \
         step["grad_rel_l2_cpu_vs_float64"], step
@@ -2372,9 +2412,335 @@ def phase_precision(torch, ctx):
              bfloat16=fit["max_memory_allocated_mb"],
              float32=ctx["pool_fit"]["max_memory_allocated_mb"]),
          step=numbers, f32_step_phase11=ctx["f32_step"], launches=launches)
+    ctx["step_numbers"] = numbers
     assert launches["topk_gallery"] > 0 and \
         launches["gather_feature_windows"] > 0, launches
     assert not torch.backends.cudnn.allow_tf32
+    return launches
+
+
+# --- phase 13e: conv_precision="default", one TF32 pass a conv --------------
+
+# default's codes against highest's of the same build: farther than high's
+# gate, or the build ran float32 (one TF32 pass keeps 10 mantissa bits;
+# float32 in another order stays within 1e-5)
+TF32_CODES_MIN_DIFF = HIGH_CODES_ATOL
+TF32_STEP_LOSS_RTOL = 1e-3   # a default step's loss against the f32 step's
+
+
+def build_times(torch, params, cfg, images, coords, dev, kw) -> dict:
+    """One gallery build of ``images`` in ``cfg``'s numerics, after a
+    warm-up: its sheet embeddings a second (host clock, synchronised) and
+    its device busy ms (``device_busy_ms``)."""
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+
+    def run():
+        return accuracy.build_piece_gallery(params, cfg, images,
+                                            coords=coords, device=dev, **kw)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gal = run()
+    torch.cuda.synchronize()
+    return dict(sheet_emb_per_s=gal.n / (time.perf_counter() - t0),
+                device_ms=device_busy_ms(torch, run, 1))
+
+
+def phase_default(torch, ctx):
+    """13e. The JAX package's ``conv_precision="default"`` in float32,
+    each conv one TF32 pass (``encoder.TF32``), on phase 4's corpus and
+    checkpoint at full width: a. the three builds, b. sheet -> audio, c.
+    each block's conv error and the flags, d. a step and a fit, e. OMR;
+    each beside highest's and bf16's from this run."""
+    from audio_sheet_retrieval_tpu_torch import assets
+    from audio_sheet_retrieval_tpu_torch.cli.tutorial import resize_page
+    from audio_sheet_retrieval_tpu_torch.data import device_pool as dp
+    from audio_sheet_retrieval_tpu_torch.models import cca_model, encoder
+    from audio_sheet_retrieval_tpu_torch.models import lasagne_import
+    from audio_sheet_retrieval_tpu_torch.omr.inference import prepare_image
+    from audio_sheet_retrieval_tpu_torch.ops import windows as win
+    from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
+    from audio_sheet_retrieval_tpu_torch.retrieval.server import (
+        AudioSheetServer,
+    )
+    from audio_sheet_retrieval_tpu_torch.retrieval.wrapper import (
+        RetrievalWrapper,
+    )
+    from audio_sheet_retrieval_tpu_torch.train import engine
+    from audio_sheet_retrieval_tpu_torch.train import state as ts
+    from audio_sheet_retrieval_tpu_torch.utils import roofline
+    from audio_sheet_retrieval_tpu_torch.utils.image_io import imread_gray
+
+    t_phase = time.perf_counter()
+    dev, cfg, params = ctx["dev"], ctx["cfg"], ctx["params"]
+    images, specs, coords = ctx["images"], ctx["specs"], ctx["coords"]
+    n_pieces = len(images)
+    cfg_def = dataclasses.replace(cfg, conv_precision="default")
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    assert cca_model.check_numerics(cfg_def) == encoder.TF32
+    launches = {name: 0 for name in read_launches()}
+    count = launch_counter(launches)
+    acc_kw = dict(coords=coords, n_candidates=25, queries_per_piece=1,
+                  excerpts_per_query=100, quantize=16, device=dev)
+
+    def flags_off(where):
+        assert not torch.backends.cudnn.allow_tf32, "TF32 left on: " + where
+        assert not torch.backends.cuda.matmul.allow_tf32, where
+
+    # a. the three builds under default, each beside the float32 and bf16
+    # builds of its arm (phase 4's and phase 13a's)
+    arms = {"exact": {}, "gather_half": dict(gather_half=True),
+            "fullconv": dict(fullconv=True)}
+    for kw in arms.values():     # warm-up: cuDNN's TF32 plans
+        accuracy.build_piece_gallery(params, cfg_def, images[:1],
+                                     coords=coords[:1], device=dev, **kw)
+    torch.cuda.synchronize()
+    flags_off("warm-up")
+    recorded = []
+
+    def build(kw):
+        win.gather_feature_windows.recorded = recorded
+        try:
+            return accuracy.build_piece_gallery(params, cfg_def, images,
+                                                coords=coords, device=dev,
+                                                **kw)
+        finally:
+            win.gather_feature_windows.recorded = None
+
+    rows, gals = {}, {}
+    for arm, kw in arms.items():
+        t0 = time.perf_counter()
+        gal = gals[arm] = count(lambda: build(kw))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        flags_off(arm + " build")
+        acc = count(lambda: accuracy.piece_id_accuracy(
+            params, cfg_def, images, specs, gallery=gal, **acc_kw))
+        top, near = count(lambda: top1_details(torch, params, cfg_def, gal,
+                                               specs, n_pieces))
+        replay = plain_replay_ranks(torch, params, cfg_def, gal, specs,
+                                    n_pieces)
+        f32_gal, f32_top = ctx["f32_gals"][arm], ctx["f32_top"][arm]
+        # each mode's build timed alike here (not counted)
+        times = {name: build_times(torch, params, c, images, coords, dev, kw)
+                 for name, c in (("float32", cfg), ("bfloat16", cfg16),
+                                 ("default", cfg_def))}
+        flops = roofline.embed_flops(cfg, 1) * gal.n
+        rows[arm] = dict(
+            codes_max_abs_diff_f32=float((gal.gallery_n - f32_gal.gallery_n)
+                                         .abs().max()),
+            bf16_codes_max_abs_diff_f32=ctx["bf16_builds"][arm][
+                "codes_max_abs_diff_f32"],
+            gallery_rows=gal.n, build_s=build_s, build_times=times,
+            mfu_default_vs_tf32_peak=roofline.mfu(
+                flops / (times["default"]["device_ms"] / 1e3),
+                torch.cuda.get_device_name(0), "float32", "default"),
+            rank1=acc["rank1"], rank5=acc["rank5"], n=acc["n"],
+            ranks_equal_plain_replay=replay == acc["ranks"],
+            piece_top1_equal_f32=int((top == f32_top[0]).sum()),
+            excerpt_top1_share_equal_f32=float((near == f32_top[1]).mean()),
+            query_p50_ms=acc["p50_ms"],
+            f32_query_p50_ms=ctx["serving"].get(arm, {}).get("query_p50_ms"),
+            bf16_query_p50_ms=ctx["bf16_builds"][arm]["query_p50_ms"])
+        emit("default", check="a. default build", arm=arm, **rows[arm])
+    flags_off("the builds")
+    for arm, row in rows.items():
+        # it ran TF32 (past float32 noise), and it is nearer float32 than
+        # bf16 is
+        assert row["codes_max_abs_diff_f32"] > TF32_CODES_MIN_DIFF, \
+            (arm, row)
+        assert row["codes_max_abs_diff_f32"] < \
+            row["bf16_codes_max_abs_diff_f32"], (arm, row)
+        assert row["n"] == n_pieces and row["rank1"] >= n_pieces - 1, \
+            (arm, row)
+        assert row["piece_top1_equal_f32"] >= n_pieces - 1, (arm, row)
+        assert row["ranks_equal_plain_replay"], (arm, row)
+    # kernel 2 ran its float32 path in the default fullconv build, each
+    # launch bit-identical to the plain version on the same plane
+    assert len(recorded) == n_pieces, len(recorded)
+    for plane, starts, n_cols, out in recorded:
+        assert plane.dtype == out.dtype == torch.float32
+        assert torch.equal(out, win.gather_feature_windows_plain(
+            plane, starts, n_cols)), "default's f32 gather differs"
+    emit("default", check="a. kernel 2 in the default fullconv build",
+         launches=len(recorded), plane_dtype="float32",
+         bit_identical_to_plain=True, plane=list(recorded[0][0].shape))
+    del recorded
+
+    # b. sheet -> audio: the audio DB and the strips' queries in default
+    names = ["piece_%03d" % p for p in range(n_pieces)]
+    srv = AudioSheetServer(device=dev)
+    srv.initialize_embedding_network(RetrievalWrapper(cfg_def, params=params,
+                                                      device=dev))
+    srv.initialize_audio_db_from_specs_device(names[:2], specs[:2])  # warm
+    srv.detect_performance_from_sheet(images[0], top_k=2, n_candidates=25)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count(lambda: srv.initialize_audio_db_from_specs_device(names, specs))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ranks, lat = [], []
+
+    def queries():
+        for p, name in enumerate(names):
+            t0 = time.perf_counter()
+            result, votes = srv.detect_performance_from_sheet(
+                images[p], top_k=n_pieces, n_candidates=25)
+            lat.append(time.perf_counter() - t0)
+            ranks.append(pessimistic_rank(dict(zip(result, votes)), names,
+                                          name))
+
+    count(queries)
+    flags_off("sheet -> audio")
+    audio_codes = srv._audio_gallery.gallery_n
+    s2a = dict(codes_max_abs_diff_f32=float((audio_codes - ctx["s2a_codes"])
+                                            .abs().max()),
+               bf16_codes_max_abs_diff_f32=ctx["bf16_s2a"][
+                   "codes_max_abs_diff_f32"],
+               audio_rows=srv._audio_gallery.n, build_s=build_s,
+               audio_emb_per_s=srv._audio_gallery.n / build_s,
+               f32_audio_emb_per_s=ctx["s2a"]["audio_emb_per_s"],
+               bf16_audio_emb_per_s=ctx["bf16_s2a"]["audio_emb_per_s"],
+               rank1=sum(r <= 1 for r in ranks),
+               rank5=sum(r <= 5 for r in ranks), n=len(ranks),
+               query_p50_ms=float(np.percentile(lat, 50) * 1000),
+               f32_query_p50_ms=ctx["s2a"]["query_p50_ms"],
+               bf16_query_p50_ms=ctx["bf16_s2a"]["query_p50_ms"],
+               jax_cpu_rank1_default=JAX_S2A_RANK1, f32_rank1=ctx["s2a"][
+                   "rank1"], bf16_rank1=ctx["bf16_s2a"]["rank1"])
+    emit("default", check="b. default sheet -> audio", **s2a)
+    # JAX's CPU default equals its highest bit for bit, so its count is 19
+    assert s2a["rank1"] >= JAX_S2A_RANK1 - 1, s2a
+    assert s2a["codes_max_abs_diff_f32"] > TF32_CODES_MIN_DIFF, s2a
+    assert s2a["codes_max_abs_diff_f32"] < \
+        s2a["bf16_codes_max_abs_diff_f32"], s2a
+
+    # c. each block's conv against float64 in the three modes, and a
+    # float32 forward after a default one bit-identical to one before it
+    conv_rows = conv_errors(torch, ctx, {"highest": encoder.HIGHEST,
+                                         "default": encoder.TF32,
+                                         "bfloat16": encoder.BF16})
+    flags_off("the conv errors")
+    emit("default", check="c. conv error vs float64, three modes",
+         worst={m: max(r[m] for r in conv_rows)
+                for m in ("highest", "default", "bfloat16")},
+         blocks=conv_rows)
+    x1 = torch.from_numpy(np.stack([images[0][20:180, s:s + 200] for s in
+                                    np.linspace(0, images[0].shape[1] - 200,
+                                                20).astype(int)])[:, None]
+                          ).to(dev)
+    x2 = torch.from_numpy(np.ascontiguousarray(np.stack(
+        [specs[0][:, s:s + 42] for s in np.linspace(
+            0, specs[0].shape[1] - 42, 20).astype(int)])[:, None])).to(dev)
+    before = engine.make_eval_fns(cfg)[0](params, x1, x2)
+    engine.make_eval_fns(cfg_def)[0](params, x1, x2)
+    flags_off("an eval forward")
+    after = engine.make_eval_fns(cfg)[0](params, x1, x2)
+    assert all(torch.equal(a, b) for a, b in zip(before, after)), "TF32 leak"
+
+    # d. one default step against the card's f32 step, float64 and the
+    # CPU's bf16 step (phase 13d), then a fit over device pools
+    tree = lasagne_import.train_params_to_numpy(cca_model.init_model(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    x1s, x2s = ctx["step_batch"]
+    card = one_step(torch, cfg_def, tree, x1s, x2s, dev, torch.float32)
+    flags_off("a default step")
+    card32 = one_step(torch, cfg, tree, x1s, x2s, dev, torch.float32)
+    f64 = one_step(torch, cfg, tree, x1s, x2s, dev, torch.float64)
+    step = dict(loss_card=card["loss"], loss_f32=card32["loss"],
+                loss_float64=f64["loss"],
+                loss_rel_vs_f32=abs(card["loss"] - card32["loss"])
+                / abs(card32["loss"]),
+                grad_rel_l2_vs_float64=relative_l2(card["grads"],
+                                                   f64["grads"]),
+                f32_grad_rel_l2_vs_float64=relative_l2(card32["grads"],
+                                                       f64["grads"]),
+                cpu_bf16_grad_rel_l2_vs_float64=ctx["bf16_step"][
+                    "grad_rel_l2_cpu_vs_float64"])
+    emit("default", check="d. one default step vs f32, float64, bf16",
+         batch=cfg.batch_size, **step)
+    assert step["loss_rel_vs_f32"] <= TF32_STEP_LOSS_RTOL, step
+    # the backward ran TF32 too: farther from float64 than float32, nearer
+    # than bf16
+    assert step["f32_grad_rel_l2_vs_float64"] < \
+        step["grad_rel_l2_vs_float64"] < \
+        step["cpu_bf16_grad_rel_l2_vs_float64"], step
+
+    fit = learning_fit(torch, dict(ctx, cfg=cfg_def), dict(
+        ctx["train_data"],
+        train=dp.from_host_pool(ctx["train_data"]["train"],
+                                rng=np.random.default_rng(23), device=dev),
+        valid=dp.from_host_pool(ctx["train_data"]["valid"], shuffle=False,
+                                rng=np.random.default_rng(24), device=dev)), (
+        dp.DeviceBatchIterator(cfg.batch_size, k_samples=cfg.k_samples),
+        dp.DeviceBatchIterator(cfg.batch_size, shuffle=False, train=False)),
+        count, run_eval_args=["--conv_precision", "default"])
+    assert {r["data"] for r in fit["epochs"]} == {"device pool"}
+    flags_off("the default fit")
+    x1d = torch.from_numpy(x1s).to(dev)
+    x2d = torch.from_numpy(x2s).to(dev)
+    state = ts.init_train_state(lasagne_import.train_params_from_numpy(
+        tree, cfg_def, device=dev), cfg_def)
+    train_step = engine.make_train_step(cfg_def)
+    torch.cuda.reset_peak_memory_stats()
+    numbers = dict(ctx["step_numbers"], default=dict(
+        step_ms=cuda_ms(lambda: train_step(state, x1d, x2d), iters=20,
+                        warmup=5),
+        device_busy_ms_per_step=device_busy_ms(
+            torch, lambda: train_step(state, x1d, x2d), 5),
+        max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20))
+    emit("default", check="d. default training", fit=fit,
+         fit_epochs=fit_numbers(fit["epochs"]),
+         f32_fit_epochs=fit_numbers(ctx["pool_fit"]["epochs"]), step=numbers)
+
+    # e. OMR in float32 default on the tutorial page, under the JAX
+    # package's bf16 gate against the float32 run
+    prep = prepare_image(resize_page(imread_gray(
+        assets.tutorial_sheet_path())))
+    nets = {"float32": omr_nets(torch)}
+    weights = {k: n.params for k, n in nets["float32"].items()}
+    nets["default"] = omr_nets(torch, "float32", "default", weights)
+    nets["bfloat16"] = omr_nets(torch, "bfloat16", "default", weights)
+    assert all(n.net.tf32 for n in nets["default"].values())
+    found = omr_detect(nets["float32"], prep)
+    got = omr_detect(nets["default"], prep)
+    flags_off("OMR")
+    maps = {m: n["system"].predict_proba(prep) for m, n in nets.items()}
+    ref64 = float64_system_codes(torch, weights["system"].to_numpy(), prep,
+                                 nets["float32"]["system"])
+    page_ms = {m: {k: cuda_ms(lambda: net.predict_proba(prep), iters=5,
+                              warmup=1) for k, net in n.items()}
+               for m, n in nets.items()}
+    sys_dev = np.abs(got["systems"].astype(int)
+                     - found["systems"].astype(int)).max() \
+        if got["systems"].shape == found["systems"].shape else None
+    bars_dev = np.abs(np.asarray(got["bars"], float)
+                      - np.asarray(found["bars"], float)).max() \
+        if np.shape(got["bars"]) == np.shape(found["bars"]) else None
+    omr = dict(systems=len(got["systems"]), system_corner_dev_px=sys_dev,
+               bars=len(got["bars"]), bars_f32=len(found["bars"]),
+               bar_dev_px=bars_dev, notes=len(got["notes"]),
+               notes_f32=len(found["notes"]),
+               system_map_max_dev_f32=float(np.abs(
+                   maps["default"] - maps["float32"]).max()),
+               u16_share_off_float64={m: float((u16_codes(p) != ref64)
+                                               .mean())
+                                      for m, p in maps.items()},
+               page_ms=page_ms)
+    emit("default", check="e. OMR default vs f32 (JAX's bf16 gate)", **omr)
+    assert sys_dev is not None and sys_dev <= OMR_BF16_PX, omr
+    assert omr["bars"] == omr["bars_f32"], omr
+    assert bars_dev is not None and bars_dev <= OMR_BF16_PX, omr
+    assert abs(omr["notes"] - omr["notes_f32"]) <= \
+        OMR_BF16_NOTES * omr["notes_f32"], omr
+    assert omr["system_map_max_dev_f32"] > 1e-5, "the default arm ran f32"
+
+    emit("default", check="done", launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    assert launches["topk_gallery"] > 0 and \
+        launches["gather_feature_windows"] > 0, launches
+    flags_off("phase 13e")
     return launches
 
 
@@ -5074,7 +5440,8 @@ def main() -> int:
         ctx, launches = phase_serving(torch, reports_dir)
         for phase in (phase_s2a, phase_streaming, phase_audio,
                       phase_eval_refine, phase_train, phase_device_pool,
-                      phase_precision, phase_alignment, phase_omr,
+                      phase_precision, phase_default, phase_alignment,
+                      phase_omr,
                       phase_reports, phase_mesh, phase_gallery,
                       phase_wire, phase_experiments, phase_scale):
             for name, n in phase(torch, ctx).items():

@@ -2,11 +2,12 @@
 """Where the time goes on the PyTorch port's serving path, on one CUDA card.
 
     python scripts/torch_profile_serving.py [--out PATH] [--queries N]
-        [--compute_dtype float32|bfloat16] [--conv_precision highest|high]
+        [--compute_dtype float32|bfloat16] [--conv_precision highest|high|default]
 
 The setting is chip_smoke.py's main path: the vendored synthetic-corpus
 serving checkpoint at full width (``mutopia_ccal_cont_rsz``; float32 with
-TF32 off by default, or the numerics given), the 60-piece synthetic corpus
+TF32 off by default, or the numerics given: ``--conv_precision default``
+runs each conv as one TF32 pass), the 60-piece synthetic corpus
 with onset-aligned windows (about 12,000 gallery rows), 100-excerpt
 piece-ID queries with 25 candidates.
 
@@ -143,7 +144,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compute_dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--conv_precision", default="highest",
-                    choices=["highest", "high"])
+                    choices=["highest", "high", "default"])
     args = ap.parse_args(argv)
     out = args.out or os.path.join(
         REPO, "build", "profile", "profile_serving_%s_%s.json"

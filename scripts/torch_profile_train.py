@@ -2,14 +2,16 @@
 """Where the time of one train step goes on the PyTorch port, on one CUDA card.
 
     python scripts/torch_profile_train.py [--out PATH] [--steps N]
-        [--compute_dtype float32|bfloat16] [--conv_precision highest|high]
+        [--compute_dtype float32|bfloat16] [--conv_precision highest|high|default]
 
 The setting is chip_smoke.py's phase 11: ``mutopia_ccal_cont_rsz`` at full
 width (24 filters, 32-D latent, sheet 160 x 200 halved, spectrogram
 92 x 42), batch 100, a seeded init, one batch of the synthetic corpus with
 the FULL augmentation of ``exp_configs/mutopia_full_aug.yaml``, under the
 numerics given (float32 with TF32 off by default; bf16 convolutions with
-``--compute_dtype bfloat16``, as phase 13 trains). After a warm-up it
+``--compute_dtype bfloat16``, as phase 13 trains; each conv and both its
+gradients as one TF32 pass with ``--conv_precision default``, as phase
+13e trains). After a warm-up it
 reports
 
 - ``step``: the median CUDA-event time of one step (batch already on the
@@ -137,7 +139,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compute_dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--conv_precision", default="highest",
-                    choices=["highest", "high"])
+                    choices=["highest", "high", "default"])
     args = ap.parse_args(argv)
     out = args.out or os.path.join(
         REPO, "build", "profile", "profile_train_%s_%s.json"

@@ -92,7 +92,7 @@ def test_constants_equal_jax():
 def test_bf16_arms_keep_the_default_precision():
     """The bf16 arms carry JAX's ``conv_precision="default"``, which a
     bfloat16 ``compute_dtype`` ignores in both packages: the port reads it
-    as its bf16 mode (float32 "default" alone stays refused)."""
+    as its bf16 mode (float32 "default" is the TF32 mode)."""
     from audio_sheet_retrieval_tpu_torch.models import cca_model as tcca
     from audio_sheet_retrieval_tpu_torch.models import encoder as tenc
     from audio_sheet_retrieval_tpu_torch.models.configs import (

@@ -107,14 +107,13 @@ def test_run_eval_parser_and_unported_modes(tmp_path, monkeypatch, capsys):
     assert {a.dest for a in trefine.build_arg_parser()._actions} == \
         {a.dest for a in jrefine.build_arg_parser()._actions} | {"device"}
     common = ["--param_file", SYNTH_CKPT, "--device", "cpu", "--n_test", "10"]
-    # --conv_precision high runs, as the JAX CLI does (float32 on both
-    # CPUs); "default" is not ported and says so
-    high = ["--data", "synthetic", "--conv_precision", "high"]
-    assert_results_close(teval.main(common + high), jeval.main(
-        ["--param_file", SYNTH_CKPT, "--n_test", "10"] + high), n_test=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.main(common + ["--data", "synthetic", "--conv_precision",
-                             "default"])
+    # --conv_precision high and default run, as the JAX CLI does (float32
+    # on both CPUs; default is one TF32 pass a conv on a card)
+    for precision in ("high", "default"):
+        prec = ["--data", "synthetic", "--conv_precision", precision]
+        assert_results_close(teval.main(common + prec), jeval.main(
+            ["--param_file", SYNTH_CKPT, "--n_test", "10"] + prec),
+            n_test=10)
     # --data mutopia, over the msmd stub the repo carries: run_eval gives
     # the JAX CLI's results, and refine_cca reads the JAX CLI's pools (its
     # "Train/Valid/Test: N" report). The stub's pieces give degenerate

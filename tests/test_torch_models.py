@@ -128,13 +128,14 @@ def test_embed_views_and_folded_match_jax(small):
 
 
 @pytest.mark.parametrize("override", [dict(compute_dtype="bfloat16"),
-                                      dict(conv_precision="high")])
+                                      dict(conv_precision="high"),
+                                      dict(conv_precision="default")])
 def test_unported_numerics_raise(small, override):
-    """The JAX package's bf16 and ``high`` numerics, once refused, now
-    run: ``embed_view1`` and the wrapper against the JAX package's (bf16
-    within 2e-3, ``high`` within 1e-5; ``tests/test_torch_precision.py``
-    says why). ``conv_precision="default"`` still raises, naming
-    ROADMAP."""
+    """The JAX package's bf16, ``high`` and ``default`` numerics, once
+    refused, now run: ``embed_view1`` and the wrapper against the JAX
+    package's (bf16 within 2e-3, ``high`` and ``default`` within 1e-5, as
+    float32: ``default`` is one TF32 pass on a card and float32 on the CPU
+    in both packages; ``tests/test_torch_precision.py`` says why)."""
     cfg, jparams, tparams, x1, x2 = small
     import dataclasses
 
@@ -149,12 +150,9 @@ def test_unported_numerics_raise(small, override):
     jw = jwrapper.RetrievalWrapper(c, params=jparams, batch_size=2)
     np.testing.assert_allclose(w.compute_view_2(x2), jw.compute_view_2(x2),
                                atol=atol)
-    bad = dataclasses.replace(c, compute_dtype="float32",
-                              conv_precision="default")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcca.embed_view1(tparams, torch.zeros(1, 1, 80, 100), bad)
-    with pytest.raises(NotImplementedError):
-        RetrievalWrapper(bad, params=tparams, device="cpu")
+    np.testing.assert_allclose(w.compute_view_1(x1), jw.compute_view_1(x1),
+                               atol=atol)
+    assert not torch.backends.cudnn.allow_tf32
 
 
 @pytest.fixture(scope="module")

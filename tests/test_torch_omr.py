@@ -148,6 +148,7 @@ def test_crop_detections_equal_the_golden(crop, port_nets, golden):
 
 
 @pytest.mark.parametrize("dtype,prec,tol", [("float32", "high", 0.1),
+                                            ("float32", "default", 0.1),
                                             ("bfloat16", "default", 0.15)])
 def test_precision_arms_on_a_real_tile(crop, port_nets, page, dtype, prec,
                                        tol):
@@ -159,8 +160,8 @@ def test_precision_arms_on_a_real_tile(crop, port_nets, page, dtype, prec,
                                    device="cpu").predict_proba(tile)
     assert np.abs(got - ref).max() < tol
     assert np.logical_xor(got > 0.5, ref > 0.5).mean() < 5e-3
-    if dtype == "float32":   # high runs highest's float32
-        np.testing.assert_array_equal(got, ref)
+    if dtype == "float32":   # high runs highest's float32, and default
+        np.testing.assert_array_equal(got, ref)   # too on the CPU
     else:
         assert np.abs(got - ref).max() > 1e-3
 

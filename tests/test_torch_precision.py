@@ -104,8 +104,11 @@ def test_check_numerics_maps_the_three_rows_and_refuses_default(small):
     for p in ("highest", "high", "default"):
         assert tcca.check_numerics(numerics(
             cfg, dict(BF16, conv_precision=p))) == tenc.BF16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcca.check_numerics(numerics(cfg, dict(conv_precision="default")))
+    # default: one TF32 pass a conv on a card, float32 on the CPU
+    assert tcca.check_numerics(numerics(
+        cfg, dict(conv_precision="default"))) == tenc.TF32
+    with pytest.raises(ValueError, match="conv_precision"):
+        tcca.check_numerics(numerics(cfg, dict(conv_precision="fast")))
     with pytest.raises(ValueError, match="compute_dtype"):
         tcca.check_numerics(numerics(cfg, dict(compute_dtype="float16")))
 

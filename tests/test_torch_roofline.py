@@ -74,19 +74,21 @@ def test_update_flops_is_3x_forward_times_batch():
     assert roofline.train_update_flops(cfg) == 3 * fwd * cfg.batch_size
 
 
-@pytest.mark.parametrize("kind,bf16,f32,hbm", [
-    ("NVIDIA H100 80GB HBM3", 989e12, 67e12, 3.35e12),
-    ("NVIDIA H100 PCIe", 756e12, 51e12, 2.0e12),
+@pytest.mark.parametrize("kind,bf16,tf32,f32,hbm", [
+    ("NVIDIA H100 80GB HBM3", 989e12, 494.7e12, 67e12, 3.35e12),
+    ("NVIDIA H100 PCIe", 756e12, 378e12, 51e12, 2.0e12),
 ])
-def test_h100_peaks(kind, bf16, f32, hbm):
+def test_h100_peaks(kind, bf16, tf32, f32, hbm):
     peaks = roofline.chip_peaks(kind)
     assert peaks["hbm_bytes_per_s"] == hbm and peaks["hbm_bytes"] == 80e9
     eff = roofline.effective_peak_flops
     assert eff(kind, "bfloat16", "highest") == bf16
     assert eff(kind, "float32", "highest") == f32
     assert eff(kind, "float32", "high") == f32   # high runs as full f32
-    with pytest.raises(ValueError, match="default"):
-        eff(kind, "float32", "default")
+    # default runs its convs as one TF32 pass on the tensor cores
+    assert eff(kind, "float32", "default") == tf32
+    with pytest.raises(ValueError, match="conv_precision"):
+        eff(kind, "float32", "fast")
     assert roofline.mfu(f32 / 4, kind, "float32", "highest") == 0.25
 
 

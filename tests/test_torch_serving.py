@@ -14,6 +14,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from audio_sheet_retrieval_tpu import assets
 from audio_sheet_retrieval_tpu.cli import audio_sheet_server as jcli
@@ -201,8 +202,9 @@ def test_cli_demo_and_unported_modes(synth, tmp_path, capsys):
     """The single-piece demo streams, through the device stream by default
     and the host loop with --host_stream; the MSMD source fails where the
     JAX CLI's does;
-    ``--conv_precision high`` gives the JAX server's ranks under the same
-    numerics, and the unported ``default`` raises."""
+    ``--conv_precision high`` and ``default`` give the JAX server's ranks
+    under the same numerics (``default`` is float32 on the CPU in both
+    packages), and TF32 is off again after ``default``."""
     common = ["--device", "cpu", "--data", "synthetic", "--n_test_pieces",
               "2", "--param_file", SYNTH_CKPT, "--db_file",
               str(tmp_path / "db.pkl"), "--running_frames", "50"]
@@ -219,23 +221,24 @@ def test_cli_demo_and_unported_modes(synth, tmp_path, capsys):
         jcli.make_piece_source("mutopia", {"test": ["x"]}, None)[2]("x")
     assert "_spec.npy" in str(want.value)
     assert str(got.value) == str(want.value)
-    ranks = tcli.main(common[:-2] + ["--init_sheet_db", "--full_eval",
-                                     "--conv_precision", "high"])
-    cfg = dataclasses.replace(synth["cfg"], conv_precision="high")
-    names, loader, query_spec = jcli.make_piece_source(
-        "synthetic", {"test": ["x"] * 2}, None)
-    jsrv = JaxServer()
-    jsrv.initialize_embedding_network(JaxWrapper(cfg,
-                                                 params=synth["jparams"]))
-    jsrv.initialize_sheet_db(names, loader)
-    want = []
-    for tp in names:
-        result, _ = jsrv.detect_score(query_spec(tp), top_k=3,
-                                      n_candidates=25)
-        want.append(result.index(tp) + 1 if tp in result else len(result))
-    assert [int(r) for r in ranks] == want
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(common + ["--conv_precision", "default"])
+    for precision in ("high", "default"):
+        ranks = tcli.main(common[:-2] + ["--init_sheet_db", "--full_eval",
+                                         "--conv_precision", precision])
+        cfg = dataclasses.replace(synth["cfg"], conv_precision=precision)
+        names, loader, query_spec = jcli.make_piece_source(
+            "synthetic", {"test": ["x"] * 2}, None)
+        jsrv = JaxServer()
+        jsrv.initialize_embedding_network(JaxWrapper(
+            cfg, params=synth["jparams"]))
+        jsrv.initialize_sheet_db(names, loader)
+        want = []
+        for tp in names:
+            result, _ = jsrv.detect_score(query_spec(tp), top_k=3,
+                                          n_candidates=25)
+            want.append(result.index(tp) + 1 if tp in result
+                        else len(result))
+        assert [int(r) for r in ranks] == want, precision
+    assert not torch.backends.cudnn.allow_tf32
 
 
 def test_cli_npz_source_matches_synthetic(tmp_path):

@@ -380,6 +380,53 @@ def test_batch_compute1_matches_jax(n, batch):
         jiter.batch_compute1(X, compute, batch, prepare=lambda e: e * 2))
 
 
+class ThreeViewPool:
+    """A pool whose ``[sl]`` gives three views of its shuffled rows, as
+    the reference's three-view pools do; ``reset_batch_generator``
+    reshuffles from its own seeded generator."""
+
+    def __init__(self, n, seed):
+        rng = np.random.default_rng(seed)
+        self.views = [rng.standard_normal((n, 2, 3)).astype(np.float32),
+                      rng.integers(0, 255, (n, 4)).astype(np.uint8),
+                      np.arange(n, dtype=np.int64)]
+        self.shape = (n,)
+        self.rng = np.random.default_rng(seed + 1)
+        self.order = np.arange(n)
+
+    def __getitem__(self, sl):
+        return tuple(v[self.order[sl]] for v in self.views)
+
+    def reset_batch_generator(self):
+        self.order = self.rng.permutation(self.shape[0])
+
+
+@pytest.mark.parametrize("n,batch,k_samples,shuffle",
+                         [(23, 5, None, True), (23, 5, 10, True),
+                          (20, 4, 8, False), (7, 3, 50, True)])
+def test_tripleview_iterator_matches_jax(n, batch, k_samples, shuffle):
+    """The three-view iterator yields JAX's batches over the same pool and
+    seed: sub-epochs of ``k_samples``, the wrap-around fill of a short
+    last batch, the reshuffle after a full pool pass, ``prepare``."""
+    def prepare(x, y, z):
+        return x * 2, y, z + 1
+
+    its = [mod.TripleviewPoolIteratorUnsupervised(
+        batch, prepare=prepare, k_samples=k_samples, shuffle=shuffle)(
+            ThreeViewPool(n, 5)) for mod in (titer, jiter)]
+    assert its[0].n_batches == its[1].n_batches
+    assert its[0].n_epochs == its[1].n_epochs
+    for _ in range(2 * its[1].n_epochs + 1):
+        got, want = list(its[0]), list(its[1])
+        assert len(got) == len(want) > 0
+        for gb, wb in zip(got, want):
+            assert len(gb) == 3 and gb[0].shape[0] == batch
+            for g, w in zip(gb, wb):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+    assert its[0].epoch_counter == its[1].epoch_counter
+
+
 @pytest.mark.parametrize("split,config", [(None, None), ("s/b.yaml", None),
                                           (None, "c/full_aug.yaml"),
                                           ("a/bach_split.yaml", "x.yaml")])

@@ -30,6 +30,7 @@ from audio_sheet_retrieval_tpu import assets as jassets
 from audio_sheet_retrieval_tpu.models import unet as junet
 from audio_sheet_retrieval_tpu.omr import inference as jinf
 from audio_sheet_retrieval_tpu_torch.models import unet as tunet
+from audio_sheet_retrieval_tpu_torch.models.encoder import pin_full_f32
 from audio_sheet_retrieval_tpu_torch.utils.image_io import imread_gray
 import torch_port_helpers  # noqa: F401  (one torch thread a process)
 
@@ -200,9 +201,32 @@ def test_bfloat16_against_jax_bfloat16(page_tile):
 
 
 def test_numerics_are_checked():
-    tree = jax_tree_numpy(junet.import_unet_params(random_unet_arrays(2)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tunet.unet_params_from_numpy(tree, "cpu", conv_precision="default")
+    """float32 ``default`` runs (one TF32 pass on a card; float32 on the
+    CPU, as JAX's CPU runs DEFAULT): the map and every stage against
+    JAX's ``default`` at the float32 tolerance, TF32 off again after it
+    (as a card's U-Net sets it, ``encoder.pin_full_f32``). Unknown names
+    raise."""
+    pin_full_f32()
+    jparams = junet.import_unet_params(random_unet_arrays(2))
+    tree = jax_tree_numpy(jparams)
+    net = tunet.unet_params_from_numpy(tree, "cpu", conv_precision="default")
+    assert net.tf32 and net.dtype == torch.float32
+    x = np.random.default_rng(9).random((2, 64, 96)).astype(np.float32)
+    want, want_inter = junet.unet_apply(
+        jparams, jnp.asarray(x[..., None]), return_intermediates=True,
+        conv_precision="default")
+    got, got_inter = net(torch.from_numpy(x[:, None]),
+                         return_intermediates=True)
+    assert not torch.backends.cudnn.allow_tf32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=F32_RTOL)
+    for name in STAGES:
+        w = np.asarray(want_inter[name])
+        np.testing.assert_allclose(got_inter[name].permute(0, 2, 3, 1).numpy(),
+                                   w, rtol=0, atol=F32_RTOL * np.abs(w).max(),
+                                   err_msg=name)
+    assert not tunet.unet_params_from_numpy(tree, "cpu",
+                                            conv_precision="high").tf32
     with pytest.raises(ValueError, match="compute_dtype"):
         tunet.unet_params_from_numpy(tree, "cpu", compute_dtype="bf16")
     with pytest.raises(ValueError, match="conv_precision"):
