@@ -1,0 +1,8 @@
+"""The windows' conv FLOPs at the float32 peak over the device time of the
+conv kernels, in %."""
+
+from port_bench import layer
+
+
+def read(run):
+    return layer.conv_roofline(run, "windows")
