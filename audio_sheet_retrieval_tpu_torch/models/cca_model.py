@@ -31,6 +31,7 @@ from audio_sheet_retrieval_tpu_torch.models.configs import ModelConfig
 from audio_sheet_retrieval_tpu_torch.models import encoder as enc
 from audio_sheet_retrieval_tpu_torch.ops import cca as cca_ops
 from audio_sheet_retrieval_tpu_torch.ops.cca import CCAState
+from audio_sheet_retrieval_tpu_torch.utils import profiling
 
 
 def is_on(have: torch.device, want) -> bool:
@@ -113,16 +114,20 @@ def pre_cca_latent_v2(params: ModelParams, x2: torch.Tensor,
 
 def embed_view1(params: ModelParams, x1: torch.Tensor,
                 cfg: ModelConfig, *, folded: bool = False) -> torch.Tensor:
-    """Sheet embedding: encoder -> affine CCA -> L2."""
-    h1 = pre_cca_latent_v1(params, x1, cfg, folded=folded)
-    return length_norm((h1 - params.cca.mean1) @ params.cca.U)
+    """Sheet embedding: encoder -> affine CCA -> L2 (the span
+    ``encoder``)."""
+    with profiling.span("encoder"):
+        h1 = pre_cca_latent_v1(params, x1, cfg, folded=folded)
+        return length_norm((h1 - params.cca.mean1) @ params.cca.U)
 
 
 def embed_view2(params: ModelParams, x2: torch.Tensor,
                 cfg: ModelConfig, *, folded: bool = False) -> torch.Tensor:
-    """Audio embedding: encoder -> affine CCA -> L2."""
-    h2 = pre_cca_latent_v2(params, x2, cfg, folded=folded)
-    return length_norm((h2 - params.cca.mean2) @ params.cca.V)
+    """Audio embedding: encoder -> affine CCA -> L2 (the span
+    ``encoder``)."""
+    with profiling.span("encoder"):
+        h2 = pre_cca_latent_v2(params, x2, cfg, folded=folded)
+        return length_norm((h2 - params.cca.mean2) @ params.cca.V)
 
 
 # --- training ----------------------------------------------------------------

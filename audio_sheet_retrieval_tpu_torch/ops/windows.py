@@ -45,6 +45,7 @@ from audio_sheet_retrieval_tpu_torch.train.engine import (
     prepare_view1_device,
     prepare_view2_device,
 )
+from audio_sheet_retrieval_tpu_torch.utils import profiling
 
 
 def linspace_starts(total: int, window: int, n: int) -> np.ndarray:
@@ -210,9 +211,14 @@ gather_feature_windows.recorded = None
 
 
 def to_device(x, device, dtype=None) -> torch.Tensor:
-    """A host array or a tensor -> a tensor on ``device`` (``dtype``)."""
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-    return t.to(device=device, dtype=dtype)
+    """A host array or a tensor -> a tensor on ``device`` (``dtype``); a
+    host array or a tensor on another device is the span ``upload``."""
+    if isinstance(x, torch.Tensor) and cca_model.is_on(x.device, device):
+        return x.to(device=device, dtype=dtype)
+    with profiling.span("upload"):
+        t = (x if isinstance(x, torch.Tensor)
+             else torch.from_numpy(np.asarray(x)))
+        return t.to(device=device, dtype=dtype)
 
 
 def _clamp_row0(r0: int, height: int, crop_h: int) -> int:
@@ -267,20 +273,21 @@ def embed_strip_windows(params, strip: torch.Tensor, starts,
     if fullconv and cfg.sheet_downscale == 2:
         return _strip_embed_core_fullconv(params, strip, starts, cfg, crop_h)
     window = cfg.input_shape_1[2]
-    st = host_starts(starts, 0, strip.shape[1] - window)
-    if gather_half and cfg.sheet_downscale == 2:
-        half = half_plane(strip)
-        r0 = _clamp_row0((strip.shape[0] // 2 - crop_h // 2) // 2,
-                         half.shape[0], crop_h // 2)
-        wins = gather_windows(half[r0:r0 + crop_h // 2],
-                              torch.from_numpy(st // 2).to(strip.device),
-                              window // 2)
-        return cca_model.embed_view1(params, wins[:, None], cfg)
-    r0 = _clamp_row0(strip.shape[0] // 2 - crop_h // 2, strip.shape[0],
-                     crop_h)
-    crop = strip[r0:r0 + crop_h].to(torch.float32)
-    wins = gather_windows(crop, torch.from_numpy(st).to(strip.device), window)
-    x = prepare_view1_device(wins[:, None], cfg)
+    with profiling.span("windows"):
+        st = host_starts(starts, 0, strip.shape[1] - window)
+        if gather_half and cfg.sheet_downscale == 2:
+            half = half_plane(strip)
+            r0 = _clamp_row0((strip.shape[0] // 2 - crop_h // 2) // 2,
+                             half.shape[0], crop_h // 2)
+            x = gather_windows(half[r0:r0 + crop_h // 2],
+                               to_device(st // 2, strip.device),
+                               window // 2)[:, None]
+        else:
+            r0 = _clamp_row0(strip.shape[0] // 2 - crop_h // 2,
+                             strip.shape[0], crop_h)
+            crop = strip[r0:r0 + crop_h].to(torch.float32)
+            wins = gather_windows(crop, to_device(st, strip.device), window)
+            x = prepare_view1_device(wins[:, None], cfg)
     return cca_model.embed_view1(params, x, cfg)
 
 
@@ -312,12 +319,16 @@ def _strip_embed_core_fullconv(params, strip: torch.Tensor, starts,
     mode = cca_model.check_numerics(cfg)
     window = cfg.input_shape_1[2]
     st = host_starts(starts, 0, strip.shape[1] - window)
-    plane = fullconv_plane(params, strip, crop_h, mode)
-    starts_half = torch.from_numpy((st // 2).astype(np.int32)).to(
-        plane.device)
-    wins = gather_feature_windows(plane, starts_half, window // 4)
-    h1 = params.view1.forward_from(wins, 2, mode)
-    return cca_model.length_norm((h1 - params.cca.mean1) @ params.cca.U)
+    with profiling.span("encoder"):
+        plane = fullconv_plane(params, strip, crop_h, mode)
+    with profiling.span("windows"):
+        wins = gather_feature_windows(
+            plane, to_device((st // 2).astype(np.int32), plane.device),
+            window // 4)
+    with profiling.span("encoder"):
+        h1 = params.view1.forward_from(wins, 2, mode)
+        return cca_model.length_norm((h1 - params.cca.mean1)
+                                     @ params.cca.U)
 
 
 def half_plane(strip: torch.Tensor) -> torch.Tensor:
@@ -367,10 +378,11 @@ def pack_strip_4bit(strip_u8: np.ndarray) -> np.ndarray:
 def unpack_strip_4bit(packed: torch.Tensor) -> torch.Tensor:
     """Inverse of ``pack_strip_4bit`` on the tensor's device -> [H, 2 Wp]
     uint8 values (code * 17)."""
-    hi = (packed >> 4) * 17
-    lo = (packed & 0xF) * 17
-    h, wp = packed.shape
-    return torch.stack([hi, lo], dim=2).reshape(h, 2 * wp)
+    with profiling.span("decode"):
+        hi = (packed >> 4) * 17
+        lo = (packed & 0xF) * 17
+        h, wp = packed.shape
+        return torch.stack([hi, lo], dim=2).reshape(h, 2 * wp)
 
 
 RLE_PAD_RUNS = 4096  # run counts are padded to a multiple of this
@@ -404,12 +416,13 @@ def rle_bitmap_decode_device(bitmap: torch.Tensor, values: torch.Tensor,
     """Inverse of ``rle_bitmap_encode_strip`` on the tensors' device ->
     [h, w] uint8: the bits unpacked, one cumsum gives each pixel's run,
     one gather its value."""
-    n = h * w
-    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8,
-                          device=bitmap.device)
-    bits = (bitmap[:, None] >> shifts[None, :]) & 1
-    run_of = torch.cumsum(bits.reshape(-1)[:n], 0, dtype=torch.int64) - 1
-    return values[run_of].reshape(h, w)
+    with profiling.span("decode"):
+        n = h * w
+        shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.uint8,
+                              device=bitmap.device)
+        bits = (bitmap[:, None] >> shifts[None, :]) & 1
+        run_of = torch.cumsum(bits.reshape(-1)[:n], 0, dtype=torch.int64) - 1
+        return values[run_of].reshape(h, w)
 
 
 def rle_bitmap2_encode_strip(strip_u8: np.ndarray,
@@ -567,17 +580,18 @@ def spec_dequantize_device(codes: torch.Tensor, scale) -> torch.Tensor:
 
     uint16 is widened by hand (int16 view, int32, & 0xFFFF): PyTorch's
     uint16 arithmetic is partial, on CUDA most of all."""
-    if codes.dtype == torch.uint8:
-        maxcode, wide = 255.0, codes.to(torch.float32)
-    elif codes.dtype == torch.uint16:
-        maxcode = 65535.0
-        wide = (codes.view(torch.int16).to(torch.int32) & 0xFFFF).to(
-            torch.float32)
-    else:
+    if codes.dtype not in (torch.uint8, torch.uint16):
         raise TypeError(f"codes must be uint8 or uint16, got {codes.dtype}")
-    # the factor in float32, as the JAX package computes it
-    factor = np.float32(scale) / np.float32(maxcode)
-    return wide * float(factor)
+    with profiling.span("decode"):
+        if codes.dtype == torch.uint8:
+            maxcode, wide = 255.0, codes.to(torch.float32)
+        else:
+            maxcode = 65535.0
+            wide = (codes.view(torch.int16).to(torch.int32) & 0xFFFF).to(
+                torch.float32)
+        # the factor in float32, as the JAX package computes it
+        factor = np.float32(scale) / np.float32(maxcode)
+        return wide * float(factor)
 
 
 def spec_rans_encode_corpus(specs):
@@ -665,10 +679,11 @@ def embed_spec_windows(params: cca_model.ModelParams, cfg: ModelConfig,
     """float32 spectrogram [bins, T] on the device + host excerpt starts
     -> excerpt embeddings [N, dim] (window gather + encoder + CCA + L2)."""
     window = cfg.input_shape_2[2]
-    st = host_starts(starts, 0, spec.shape[1] - window)
-    wins = gather_windows(spec, torch.from_numpy(st).to(spec.device), window)
-    return cca_model.embed_view2(params, prepare_view2_device(wins[:, None]),
-                                 cfg)
+    with profiling.span("windows"):
+        st = host_starts(starts, 0, spec.shape[1] - window)
+        wins = gather_windows(spec, to_device(st, spec.device), window)
+        x = prepare_view2_device(wins[:, None])
+    return cca_model.embed_view2(params, x, cfg)
 
 
 def make_spec_embedder(params: cca_model.ModelParams, cfg: ModelConfig, *,
@@ -720,7 +735,8 @@ def mulaw_decode_device(u8: torch.Tensor, mu: float = 255.0) -> torch.Tensor:
     off at 58 of the 256 codes)."""
     if u8.dtype != torch.uint8:
         raise TypeError(f"mu-law codes must be uint8, got {u8.dtype}")
-    return _mulaw_table_on(float(mu), u8.device)[u8.to(torch.int64)]
+    with profiling.span("decode"):
+        return _mulaw_table_on(float(mu), u8.device)[u8.to(torch.int64)]
 
 
 def embed_audio_windows(params: cca_model.ModelParams, cfg: ModelConfig,

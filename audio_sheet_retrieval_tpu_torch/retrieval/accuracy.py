@@ -22,6 +22,7 @@ from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
     DeviceGallery,
     make_fused_piece_query_spec,
 )
+from audio_sheet_retrieval_tpu_torch.utils import profiling
 
 
 def gallery_starts(cfg, images: Sequence[np.ndarray],
@@ -47,17 +48,18 @@ def build_piece_gallery(params, cfg, images: Sequence[np.ndarray], *,
     ``cfg.compute_dtype`` to A/B dtypes). ``gather_half``: windows cut from
     the strip's half plane (the JAX bench's bf16 serving arm, its bench.py:
     714-719); ``fullconv``: the strip-level first-block path through the
-    feature-window gather kernel."""
-    embed = win.make_strip_embedder(params, cfg, center_crop=160,
-                                    gather_half=gather_half,
-                                    fullconv=fullconv, device=device)
-    codes, ids = [], []
-    for p, (im, st) in enumerate(zip(images,
-                                     gallery_starts(cfg, images, coords))):
-        codes.append(embed(im, st))
-        ids.append(np.full(len(st), p, np.int64))
-    return DeviceGallery(torch.cat(codes), ids=np.concatenate(ids),
-                         device=device)
+    feature-window gather kernel. The pass is the span ``build``."""
+    with profiling.span("build"):
+        embed = win.make_strip_embedder(params, cfg, center_crop=160,
+                                        gather_half=gather_half,
+                                        fullconv=fullconv, device=device)
+        codes, ids = [], []
+        for p, (im, st) in enumerate(zip(
+                images, gallery_starts(cfg, images, coords))):
+            codes.append(embed(im, st))
+            ids.append(np.full(len(st), p, np.int64))
+        return DeviceGallery(torch.cat(codes), ids=np.concatenate(ids),
+                             device=device)
 
 
 def piece_id_accuracy(params, cfg, images: Sequence[np.ndarray],

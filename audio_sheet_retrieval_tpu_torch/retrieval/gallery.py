@@ -39,6 +39,7 @@ from audio_sheet_retrieval_tpu_torch.ops.windows import (
     to_device,
     unpack_strip_4bit,
 )
+from audio_sheet_retrieval_tpu_torch.utils import profiling
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -60,7 +61,7 @@ class DeviceGallery:
                     else np.arange(self.n, dtype=np.int64))
         if self.ids.shape != (self.n,):
             raise ValueError(f"ids must be [{self.n}], got {self.ids.shape}")
-        self.ids_device = torch.from_numpy(self.ids).to(self.device)
+        self.ids_device = to_device(self.ids, self.device)
 
     def search(self, queries, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (cosine scores [Q, k], gallery indices [Q, k]), both on the
@@ -95,12 +96,15 @@ def embed_spec_excerpts(params: cca_model.ModelParams, cfg: ModelConfig,
 
 def _vote_counts(gallery: DeviceGallery, codes: torch.Tensor, k: int,
                  n_pieces: int) -> torch.Tensor:
-    """Top-k of each code (kernel 1 on the card) -> per-piece vote counts
-    [n_pieces] (int64, on the device); labels >= n_pieces are not counted
-    (the JAX one-hot drops them)."""
-    _, idx = topk_gallery(codes.contiguous(), gallery.gallery_n, k)
-    pid = gallery.ids_device[idx].reshape(-1)
-    return torch.bincount(pid, minlength=n_pieces)[:n_pieces]
+    """Top-k of each code (kernel 1 on the card; the span ``topk``) ->
+    per-piece vote counts [n_pieces] (int64, on the device; the span
+    ``vote``); labels >= n_pieces are not counted (the JAX one-hot drops
+    them)."""
+    with profiling.span("topk"):
+        _, idx = topk_gallery(codes.contiguous(), gallery.gallery_n, k)
+    with profiling.span("vote"):
+        pid = gallery.ids_device[idx].reshape(-1)
+        return torch.bincount(pid, minlength=n_pieces)[:n_pieces]
 
 
 def make_fused_piece_query(params: cca_model.ModelParams, cfg: ModelConfig,
@@ -122,8 +126,9 @@ def make_fused_piece_query(params: cca_model.ModelParams, cfg: ModelConfig,
     embed = make(params, cfg, processor, device=gallery.device)
 
     def query(audio, starts, num_frames: int) -> torch.Tensor:
-        return _vote_counts(gallery, embed(audio, starts, num_frames), k,
-                            n_pieces)
+        with profiling.span("query"):
+            return _vote_counts(gallery, embed(audio, starts, num_frames), k,
+                                n_pieces)
 
     return query
 
@@ -147,10 +152,11 @@ def make_fused_piece_query_spec(params: cca_model.ModelParams,
     params = params.to(gallery.device)
 
     def query(payload, scale, starts) -> torch.Tensor:
-        codes = embed_spec_excerpts(
-            params, cfg, to_device(payload, gallery.device), scale, starts,
-            quantized)
-        return _vote_counts(gallery, codes, k, n_pieces)
+        with profiling.span("query"):
+            codes = embed_spec_excerpts(
+                params, cfg, to_device(payload, gallery.device), scale,
+                starts, quantized)
+            return _vote_counts(gallery, codes, k, n_pieces)
 
     return query
 
@@ -199,24 +205,27 @@ def make_fused_sheet_query(params: cca_model.ModelParams, cfg: ModelConfig,
         def query(bm2, vals2, values, starts) -> torch.Tensor:
             """(bm2, vals2, values) from ops.windows.rle_bitmap2_encode_strip
             of the [H, W] strip."""
-            return votes(rle_bitmap2_decode_device(
-                to_device(bm2, dev), to_device(vals2, dev),
-                to_device(values, dev), *strip_shape), starts)
+            with profiling.span("query"):
+                return votes(rle_bitmap2_decode_device(
+                    to_device(bm2, dev), to_device(vals2, dev),
+                    to_device(values, dev), *strip_shape), starts)
         return query
 
     if coding == "rle_bitmap":
         def query(bitmap, values, starts) -> torch.Tensor:
             """(bitmap, values) from ops.windows.rle_bitmap_encode_strip of
             the [H, W] strip."""
-            return votes(rle_bitmap_decode_device(
-                to_device(bitmap, dev), to_device(values, dev),
-                *strip_shape), starts)
+            with profiling.span("query"):
+                return votes(rle_bitmap_decode_device(
+                    to_device(bitmap, dev), to_device(values, dev),
+                    *strip_shape), starts)
         return query
 
     unpack = unpack_strip_4bit if coding == "pack4" else (lambda s: s)
 
     def query(strip, starts) -> torch.Tensor:
         """strip: [H, W/2] packed uint8 (pack4) or [H, W] uint8."""
-        return votes(unpack(to_device(strip, dev)), starts)
+        with profiling.span("query"):
+            return votes(unpack(to_device(strip, dev)), starts)
 
     return query

@@ -202,8 +202,10 @@ exits non-zero):
    ``utils/roofline.py`` and the achieved TFLOP/s and MFU of phase 4's
    float32 build, phase 13a's bf16 build and phase 11's step against the
    card's peaks (``card_peaks``: the same table gives every bound here);
-   one audio -> sheet query inside ``utils.profiling.trace``, its trace
-   holding kernels. b. this script started twice more
+   one fused audio -> sheet query inside ``utils.profiling.trace``, its
+   trace holding kernels and its spans one ``query`` root over the stages,
+   on the trace's clock: every launch from the root's start to its end,
+   none before. b. this script started twice more
    (``--mesh-rank``) as two gloo ranks sharing card 0, at full width:
    one step on each half of phase 11's batch against one rank's step on
    the whole and a float64 step; under deterministic cuDNN, a 3-epoch
@@ -3708,28 +3710,51 @@ def roofline_numbers(ctx) -> dict:
         for k, (r, dt) in runs.items()})
 
 
-def traced_query(ctx) -> dict:
-    """16a. One audio -> sheet query inside ``utils.profiling.trace``."""
-    import torch
+LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+QUERY_STAGES = {"upload", "decode", "windows", "encoder", "topk", "vote"}
 
+
+def traced_query(ctx) -> dict:
+    """16a. One fused audio -> sheet query (``detect_score_from_spec``, the
+    u16 wire) inside ``utils.profiling.trace``: its trace holds kernels,
+    and its ``spans.json`` one ``query`` root over the stages. Every
+    kernel launch of the trace that lies between the root's start and end
+    is one the root's span covers, and none lies before the root's start:
+    the spans share the device trace's clock."""
     from audio_sheet_retrieval_tpu_torch.utils import profiling
 
     srv = with_sheet_gallery(make_server(ctx), ctx)
     kw = dict(top_k=5, n_candidates=25)
-    srv.detect_score(ctx["specs"][0], **kw)    # warm-up
+    srv.detect_score_from_spec(ctx["specs"][0], **kw)    # warm-up
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.trace(tmp) as path:
-            top = srv.detect_score(ctx["specs"][0], **kw)
+            top = srv.detect_score_from_spec(ctx["specs"][0], **kw)
         size = os.path.getsize(path)
         with open(path) as fp:
             events = json.load(fp)["traceEvents"]
+        with open(os.path.join(tmp, "spans.json")) as fp:
+            spans = json.load(fp)
     kernels = sum(1 for ev in events if ev.get("cat") == "kernel")
     assert size > 0 and kernels > 0, (size, kernels)
+    roots = [s for s in spans if s["parent"] is None]
+    assert [r["name"] for r in roots] == ["query"], roots
+    root = roots[0]
+    assert {s["name"] for s in spans if s["parent"] is not None} \
+        == QUERY_STAGES, spans
+    t0, t1 = root["ts_us"], root["ts_us"] + root["dur_us"]
+    launches = sorted(float(ev["ts"]) for ev in events
+                      if ev.get("ph") == "X" and ev.get("name") in LAUNCHES)
+    inside = [t for t in launches if t0 <= t <= t1]
+    assert inside and len(inside) == sum(t <= t1 for t in launches), (
+        t0, t1, launches[:5])
     mem = profiling.device_memory_stats()["cuda:0"]
     assert mem["allocated_bytes.all.peak"] > 0
     return dict(trace_bytes=size, device_kernels_traced=kernels,
-                top1=str(top[0][0]), peak_allocated_mb=mem[
-                    "allocated_bytes.all.peak"] / 2**20)
+                top1=str(top[0][0]), spans=len(spans),
+                query_span_ms=root["dur_us"] / 1e3,
+                launches_in_query=len(inside),
+                launches_after_query=len(launches) - len(inside),
+                peak_allocated_mb=mem["allocated_bytes.all.peak"] / 2**20)
 
 
 def mesh_step(torch, cfg, tree, x1, x2, mesh) -> dict:

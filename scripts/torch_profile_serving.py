@@ -34,11 +34,10 @@ kind. For each window it reports
 - ``busy_share`` = device_busy_ms / wall_ms;
 - ``top``: device time summed by activity name, largest first.
 
-Then, without the profiler, the host-clock time of each stage of one query
-(host quantization, upload, excerpt embedding, top-k, vote + download),
-synchronised between stages, the unprofiled query p50 (upload to
+Then, without the profiler, the unprofiled query p50 (upload to
 downloaded counts, the ``p50_ms`` of ``retrieval.accuracy``), and the
-unprofiled p50 of a sheet -> audio query and of a chunk-8 push.
+unprofiled p50 of a sheet -> audio query and of a chunk-8 push. (The
+stages inside a query are the port's spans, ``utils/profiling.py``.)
 
 Each window prints one JSON line; the whole result goes to ``--out``
 (default ``build/profile/profile_serving_<dtype>_<precision>.json``).
@@ -157,11 +156,9 @@ def main(argv=None) -> int:
     from audio_sheet_retrieval_tpu_torch.data import synthetic
     from audio_sheet_retrieval_tpu_torch.models.configs import get_model_config
     from audio_sheet_retrieval_tpu_torch.ops import windows as win
-    from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
     from audio_sheet_retrieval_tpu_torch.retrieval import accuracy
     from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
         DeviceGallery,
-        embed_spec_excerpts,
         make_fused_piece_query_spec,
         make_fused_sheet_query,
     )
@@ -277,37 +274,6 @@ def main(argv=None) -> int:
                  "queries", "s2a_queries", "stream_chunk8", "omr"):
         print(name, json.dumps(result[name]), flush=True)
 
-    # per-stage host clock of one query, synchronised between stages
-    stages = collections.defaultdict(list)
-    p50 = []
-    for spec, (payload, scale, st) in zip(specs, jobs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        codes_u16, scale_h = win.spec_quantize(spec, bits=16)
-        t1 = time.perf_counter()
-        dev_codes = torch.from_numpy(codes_u16).to(dev)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        emb = embed_spec_excerpts(params, cfg, dev_codes, scale_h, st, True)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        _, idx = topk_gallery(emb.contiguous(), gallery.gallery_n, 25)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        torch.bincount(gallery.ids_device[idx].reshape(-1),
-                       minlength=len(images))[:len(images)].cpu()
-        t5 = time.perf_counter()
-        for key, a, b in (("quantize_host", t0, t1), ("upload", t1, t2),
-                          ("embed", t2, t3), ("topk", t3, t4),
-                          ("vote_download", t4, t5)):
-            stages[key].append((b - a) * 1000.0)
-        t6 = time.perf_counter()
-        query(payload, scale, st).cpu()
-        p50.append((time.perf_counter() - t6) * 1000.0)
-    result["query_stages_p50_ms"] = {k: float(np.median(v))
-                                     for k, v in stages.items()}
-    result["query_p50_ms_unprofiled"] = float(np.median(p50))
-
     def p50_ms(fn, items):
         times = []
         for item in items:
@@ -317,14 +283,15 @@ def main(argv=None) -> int:
             times.append((time.perf_counter() - t0) * 1000.0)
         return float(np.median(times))
 
+    result["query_p50_ms_unprofiled"] = p50_ms(
+        lambda job: query(*job).cpu(), jobs)
     result["s2a_query_p50_ms_unprofiled"] = p50_ms(
         lambda job: sheet_query(*job).cpu(), strips)
     stream.reset()
     result["stream_push8_p50_ms_unprofiled"] = p50_ms(
         lambda c0: stream.push_frames(frames[c0:c0 + 8]),
         range(0, len(frames) - 7, 8))
-    print("query_stages", json.dumps(result["query_stages_p50_ms"]),
-          "query_p50_ms_unprofiled", result["query_p50_ms_unprofiled"],
+    print("query_p50_ms_unprofiled", result["query_p50_ms_unprofiled"],
           "s2a_query_p50_ms_unprofiled",
           result["s2a_query_p50_ms_unprofiled"],
           "stream_push8_p50_ms_unprofiled",
