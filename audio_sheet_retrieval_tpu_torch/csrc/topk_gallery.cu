@@ -10,14 +10,23 @@
 // 67 TFLOP/s of the CUDA cores, 95 us at Q = 100, N = 1e6). Below Q of
 // about 40 the bytes bound it, above it the FMAs. Keeping the k best costs
 // little at k = 25 once a query's k-th best score is known, because most
-// rows fail it; at large k it is the selection that costs. In practice the
-// scoring loop reaches 10-20 % of the FMA rate (PERF.md: its limit is not
-// yet known), and at k of 1,024 and more, where one CTA fills a SM, the
-// selection about as much again.
+// rows fail it; at large k it is the selection that costs. The chunked
+// pass 1 reaches 10-20 % of the FMA rate: its 4 x 4 tiles of lane-distinct
+// rows spend 20 shared-memory wavefronts on 64 FMAs. At a catalogue's size
+// (N = 4,194,304, Q = 100, k = 25) the streaming pass 1 below reaches 29 %
+// (1.39 ms against 1.97; PERF.md): its scoring alone (the selection cut out)
+// reaches 42 % at Q = 100 and 53 % at Q = 128, and the selection (about
+// 1,700 survivors a warp, each an atomic, a queue slot and a share of a
+// warp_take drain) and the warps' wait for each other at the shared ring
+// take a third of its time. At k of 1,024 and more, where one CTA fills a
+// SM, the selection costs about as much as the scoring.
 //
 // Design (the launch plan, sizes included, is computed in Python by
 // ops/topk_gallery.py::plan and passed in):
-//   pass 1: a CTA takes QBW queries (1, 8 or 32, the narrowest that holds
+//   pass 1 at a catalogue's size (k <= 32, 48 <= Q <= 128, d <= 32, N >=
+//     1,000,000): topk_chunk_stream_kernel, one CTA a SM reading its chunk
+//     once for every query (the section of that name below).
+//   pass 1 otherwise: a CTA takes QBW queries (1, 8 or 32, the narrowest that holds
 //     Q, so that at Q = 100 four CTAs share each gallery chunk, one after
 //     another in the grid so that L2 serves the re-reads, and at Q = 1 no
 //     accumulator is idle) and one chunk of gallery rows. Tiles of
@@ -65,7 +74,12 @@
 // broadcasts, per-thread counters for the two most frequent histogram
 // bins, a warp vote that counts a whole warp's bin at once, gathering the
 // keys that share T's top two bytes before the last two radix passes, and
-// deeper unrolling of the selection's or the scoring's loops.
+// deeper unrolling of the selection's or the scoring's loops. For the
+// streaming pass 1 (a dozen variants, each bit-identical): queries held in
+// registers (register-bound, slower), 8 x 8 tiles of 16 queries a warp
+// (faster scoring, costlier selection), a producer warp, selection by
+// per-query heaps, by lanes' private lists, by shuffle-scan rounds alone,
+// and deeper rings or faster threshold refreshes (no gain).
 // Tensor cores are not used: single-pass TF32 changes the scores by more
 // than the 1e-4 the port's checks allow, and a 3xTF32 mma.sync path is left
 // for a later change (ROADMAP Queue 2).
@@ -75,6 +89,7 @@
 // a NaN score counts as -inf; rows past N are never returned. An empty
 // slot is (-inf, INT_MAX), which sorts after every real entry.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -375,32 +390,38 @@ __device__ __forceinline__ void warp_insert32(float& s, int& i, float cs,
   else if (lane == pos) { s = cs; i = ci; }
 }
 
+// Offer one candidate a lane (cs, ci) to the warp's list; only those that
+// beat the list's kth entry count. A few are inserted one by one, more are
+// sorted and merged as a batch.
+__device__ __forceinline__ void warp_offer(float cs, int ci, int kth,
+                                           float& s, int& i, int lane) {
+  const float ts = __shfl_sync(FULL, s, kth - 1);
+  const int ti = __shfl_sync(FULL, i, kth - 1);
+  const bool want = better(cs, ci, ts, ti);
+  unsigned m = __ballot_sync(FULL, want);
+  if (__popc(m) < INSERT_MAX) {
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      warp_insert32(s, i, __shfl_sync(FULL, cs, src),
+                    __shfl_sync(FULL, ci, src), lane);
+    }
+  } else {
+    if (!want) { cs = -INFINITY; ci = EMPTY; }
+    warp_sort32(cs, ci, lane);
+    warp_merge32(s, i, cs, ci, lane);
+  }
+}
+
 // Offer n candidates (src_s, src_i)[0, n) to the warp's list, 32 at a
-// time; only those that beat the list's kth entry count. A few are
-// inserted one by one, more are sorted and merged as a batch.
+// time (warp_offer).
 __device__ __forceinline__ void warp_take(const float* src_s,
                                           const int* src_i, int n, int kth,
                                           float& s, int& i, int lane) {
   for (int b = 0; b < n; b += 32) {
     const int j = b + lane;
-    float cs = j < n ? src_s[j] : -INFINITY;
-    int ci = j < n ? src_i[j] : EMPTY;
-    const float ts = __shfl_sync(FULL, s, kth - 1);
-    const int ti = __shfl_sync(FULL, i, kth - 1);
-    const bool want = j < n && better(cs, ci, ts, ti);
-    unsigned m = __ballot_sync(FULL, want);
-    if (__popc(m) < INSERT_MAX) {
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        warp_insert32(s, i, __shfl_sync(FULL, cs, src),
-                      __shfl_sync(FULL, ci, src), lane);
-      }
-    } else {
-      if (!want) { cs = -INFINITY; ci = EMPTY; }
-      warp_sort32(cs, ci, lane);
-      warp_merge32(s, i, cs, ci, lane);
-    }
+    warp_offer(j < n ? src_s[j] : -INFINITY, j < n ? src_i[j] : EMPTY, kth,
+               s, i, lane);
   }
 }
 
@@ -750,6 +771,490 @@ topk_merge_warp_kernel(const float* __restrict__ part_s,
   }
 }
 
+// --- pass 1 for k <= WARP_K at a catalogue's size: the streaming kernel -----
+// One CTA a SM walks a chunk of the gallery once for every query (Q <= 128,
+// d <= 32), so the gallery leaves device memory once a search. The ring
+// holds `stages` stages of SR = 128 rows x 32 floats, each one TMA box
+// (cp.async.bulk.tensor, 128-byte swizzled; columns past d and rows past N
+// read as zeros) completing on the stage's `full` mbarrier; the last warp
+// to finish scoring a stage (a shared counter) asks for the stage's next
+// tile, so no warp only copies. Warp w owns the SQ = 8 queries 8 (w / rs_n)
+// ... + 7 and every rs_n-th tile. Lane 16 kappa + rho scores rows rho + 16 i
+// (i < 8) of a tile against queries kappa + 2 j (j < 4) of its warp: per
+// 16-byte column c, 8 row loads and 4 query loads feed 128 FMAs (10.7 a
+// load); the swizzle puts the 8 rows a quarter-warp reads (rho & 7 = 0 ...
+// 7) in 8 bank groups. The rows of a tile's first column are loaded before
+// the previous tile's survivors are handled. Each score is the fmaf chain
+// over columns 0 ... d - 1, as in tile_loop, so scores and answers are
+// those of the chunked pass 1 bit for bit.
+// Selection: each query's list of its 32 best (a warp's registers while it
+// is changed, shared memory between) and its threshold, the list's kp-th
+// entry, in shared memory and in the registers of the lanes that score the
+// query. Before the first tile's survivors count, the threshold rises to a
+// bound from the tile itself (first_thresholds). A tile whose scores all
+// fall below their thresholds (a NaN-propagating max a query) costs a vote.
+// Otherwise the warp counts the scores at or above their thresholds: when
+// the queues can take them, each survivor goes to its query's queue by a
+// shared atomic; when they are many (the first tiles), in 8 rounds (query
+// j; rows 0-3 or 4-7), each a warp-aggregated append by ballots. Before a
+// queue could overflow, and when the rows end, the warp drains every queue
+// into its list (stream_drain, warp_take) and reloads the thresholds. A
+// drain also offers each full list's kp-th entry to the query's key in
+// gthr, the best such entry of any CTA: every CTA's kp best are at least as
+// good, so a row worse than it is in no list's k best; every REFRESH tiles
+// a warp takes gthr's keys where they beat its own. No block barrier runs
+// between the set-up and the end; at the end the rs_n warps of a query
+// block merge their lists into its part list.
+constexpr int QT = 4;              // queries a lane scores
+constexpr int SQ = 2 * QT;         // queries a warp owns
+constexpr int SR = 128;            // gallery rows of a tile (a ring stage)
+constexpr int BOX = 32;            // floats of a box row: the swizzle's span
+constexpr int QCAP = 96;           // a query's queue
+constexpr int ROUND_MAX = 64;      // entries a round adds to a queue:
+                                   // 16 lanes x 4 rows
+constexpr int REFRESH = 8;         // tiles between reads of gthr
+constexpr int STREAM_WARPS = 16;   // warps a CTA at most
+constexpr int STREAM_MAX_Q = 128;
+constexpr int STAGEF = SR * BOX;   // floats of a stage
+// a warp's lists [SQ][32] and queues [SQ][QCAP] (scores, then rows),
+// thresholds [2][QT] (query kappa + 2 j at QT kappa + j; scores, then
+// rows) and queue counts [SQ], in 32-bit words
+constexpr int WARPF = 2 * SQ * (32 + QCAP) + 3 * SQ;
+constexpr uint64_t DEADLINE_NS = 4000000000ull;  // a wait this long: trap
+
+// Dynamic shared bytes (ops/topk_gallery.py::stream_smem_bytes): 1,024 to
+// align the ring, the ring, an mbarrier and a counter a stage, the queries
+// [SQ nqw][32], and each warp's WARPF words.
+__host__ __device__ constexpr int stream_smem_bytes(int Q, int rs_n,
+                                                    int stages) {
+  const int nqw = (Q + SQ - 1) / SQ;
+  return 1024 + stages * (STAGEF * 4 + 16) + nqw * SQ * BOX * 4 +
+         nqw * rs_n * WARPF * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t a, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(a), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t wall_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// wait until the phase of parity `parity` of *bar has completed; a wait of
+// DEADLINE_NS traps rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try(a, parity)) return;
+  const uint64_t t0 = wall_ns();
+  uint32_t tries = 0;
+  while (!mbar_try(a, parity)) {
+    if ((++tries & 63u) == 0 && wall_ns() - t0 > DEADLINE_NS) __trap();
+  }
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+// A list entry as one 64-bit key: the better entry has the larger key, and
+// 0 lies below every entry
+__device__ __forceinline__ unsigned long long entry_key(float s, int i) {
+  return (unsigned long long)key_of(s) << 32 | (unsigned)(EMPTY - i);
+}
+__device__ __forceinline__ void key_entry(unsigned long long key, float& s,
+                                          int& i) {
+  const unsigned k = (unsigned)(key >> 32);
+  s = __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+  i = EMPTY - (int)(unsigned)key;
+}
+
+// tile y0 / SR of the tensor map into a stage, completing on *bar
+__device__ __forceinline__ void stage_load(float* dst, const CUtensorMap* map,
+                                           int y0, uint64_t* bar) {
+  mbar_arrive_tx(bar, STAGEF * 4);
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(y0),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Drain a warp's queues into its lists: query l's qcnt[l] entries (Bs /
+// Bi + l QCAP) through warp_take into its list (Ls / Li + 32 l). Each full
+// list's kp-th entry goes to the query's key in gthr (nq: the warp's real
+// queries) and, where better, becomes its threshold (thr_s / thr_i [QT (l
+// & 1) + (l >> 1)]). Out of line: one copy for every call.
+__device__ __noinline__ void stream_drain(float* Ls, int* Li,
+                                          const float* Bs, const int* Bi,
+                                          float* thr_s, int* thr_i,
+                                          int* qcnt,
+                                          unsigned long long* gthr, int nq,
+                                          int kp, int lane) {
+  __syncwarp();  // the queues and counts written
+  for (int l = 0; l < nq; ++l) {
+    const int n = qcnt[l];
+    if (n == 0) continue;
+    float s = Ls[l * 32 + lane];
+    int i = Li[l * 32 + lane];
+    warp_take(Bs + l * QCAP, Bi + l * QCAP, n, kp, s, i, lane);
+    Ls[l * 32 + lane] = s;
+    Li[l * 32 + lane] = i;
+    if (lane == kp - 1) {
+      const int t = QT * (l & 1) + (l >> 1);
+      const unsigned long long key = entry_key(s, i);
+      if (key > entry_key(thr_s[t], thr_i[t])) {
+        thr_s[t] = s;
+        thr_i[t] = i;
+      }
+      if (i != EMPTY) atomicMax(gthr + l, key);
+    }
+  }
+  __syncwarp();  // the counts read
+  if (lane < SQ) qcnt[lane] = 0;
+  __syncwarp();
+}
+
+// a[i][j] for i < 8, j < QT known only at run time: a tree of selects, so
+// that the registers are never indexed
+__device__ __forceinline__ float pick(const float (&a)[8][QT], int i, int j) {
+  float w[QT];
+#pragma unroll
+  for (int jj = 0; jj < QT; ++jj) {
+    const float t0 = i & 1 ? a[1][jj] : a[0][jj];
+    const float t1 = i & 1 ? a[3][jj] : a[2][jj];
+    const float t2 = i & 1 ? a[5][jj] : a[4][jj];
+    const float t3 = i & 1 ? a[7][jj] : a[6][jj];
+    const float u0 = i & 2 ? t1 : t0, u1 = i & 2 ? t3 : t2;
+    w[jj] = i & 4 ? u1 : u0;
+  }
+#pragma unroll
+  for (int span = 1; span < QT; span <<= 1)
+#pragma unroll
+    for (int jj = 0; jj + span < QT; jj += 2 * span)
+      w[jj] = j & span ? w[jj + span] : w[jj];
+  return w[0];
+}
+
+// kFull: d == 32 (else d < 32 and columns past d are skipped)
+template <bool kFull>
+__global__ void __launch_bounds__(32 * STREAM_WARPS, 1)
+topk_chunk_stream_kernel(const __grid_constant__ CUtensorMap tmap,
+                         const float* __restrict__ queries, int Q, int N,
+                         int d, int kp, int chunk, int rs_n, int stages,
+                         float* __restrict__ part_s,
+                         int* __restrict__ part_i,
+                         unsigned long long* __restrict__ gthr) {
+  extern __shared__ __align__(16) unsigned char sraw[];
+  float* ring = reinterpret_cast<float*>(
+      sraw + ((1024u - (smem_u32(sraw) & 1023u)) & 1023u));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * STAGEF);
+  int* done = reinterpret_cast<int*>(full + stages);  // warps done a stage
+  float* qs = reinterpret_cast<float*>(done + 2 * stages);  // [nqw SQ][BOX]
+  const int nqw = (Q + SQ - 1) / SQ;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_begin = blockIdx.x * chunk;
+  const int row_end = min(row_begin + chunk, N);
+  const int n_tiles = (row_end - row_begin + SR - 1) / SR;
+
+  for (int e = threadIdx.x; e < nqw * SQ * BOX; e += blockDim.x) {
+    const int qq = e / BOX, j = e - qq * BOX;
+    qs[e] = (qq < Q && j < d) ? queries[(long long)qq * d + j] : 0.f;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < stages && t < n_tiles; ++t)
+      stage_load(ring + t * STAGEF, &tmap, row_begin + t * SR, &full[t]);
+  }
+  __syncthreads();  // the only CTA-wide barrier
+
+  const int qw = warp / rs_n, rs = warp - qw * rs_n;
+  const int rho = lane & 15, kap = lane >> 4;
+  const int nq = min(SQ, Q - qw * SQ);  // the warp's real queries
+  unsigned long long* gq = gthr + qw * SQ;
+  float* Ls = qs + nqw * SQ * BOX + warp * WARPF;         // [SQ][32]
+  int* Li = reinterpret_cast<int*>(Ls + SQ * 32);
+  float* Bs = Ls + 2 * SQ * 32;                           // [SQ][QCAP]
+  int* Bi = reinterpret_cast<int*>(Bs + SQ * QCAP);
+  float* thr_s = Ls + 2 * SQ * (32 + QCAP);               // [2][QT]
+  int* thr_i = reinterpret_cast<int*>(thr_s + SQ);
+  int* qcnt = thr_i + SQ;                                 // [SQ]
+  for (int e = lane; e < SQ * 32; e += 32) {
+    Ls[e] = -INFINITY;
+    Li[e] = EMPTY;
+  }
+  if (lane < SQ) {  // a padding query's threshold is +inf: no score beats it
+    const int l = QT * (lane & 1) + (lane >> 1);
+    thr_s[l] = lane < nq ? -INFINITY : INFINITY;
+    thr_i[l] = EMPTY;
+    qcnt[lane] = 0;
+  }
+  __syncwarp();
+  float ts[QT];
+  int ti[QT];
+  auto load_thresholds = [&]() {
+#pragma unroll
+    for (int j = 0; j < QT; j += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(thr_s + QT * kap + j);
+      const int4 b = *reinterpret_cast<const int4*>(thr_i + QT * kap + j);
+      ts[j] = a.x; ts[j + 1] = a.y; ts[j + 2] = a.z; ts[j + 3] = a.w;
+      ti[j] = b.x; ti[j + 1] = b.y; ti[j + 2] = b.z; ti[j + 3] = b.w;
+    }
+  };
+  load_thresholds();
+  int fill = 0;  // the fullest queue's entries
+  auto drain = [&]() {
+    stream_drain(Ls, Li, Bs, Bi, thr_s, thr_i, qcnt, gq, nq, kp, lane);
+    fill = 0;
+    load_thresholds();
+  };
+  const float* qrow = qs + (qw * SQ + kap) * BOX;  // + 2 j BOX: query kap + 2 j
+  const int nc = d >> 2;
+  // Before the first tile's survivors are queued, each query's threshold
+  // rises to the 13th best of its 16 lanes' second-best scores: at least 13
+  // x 2 >= kp rows score as high, so every row below it falls out of the
+  // kp best (NaN as -inf; rows past the chunk count as -inf).
+  auto first_thresholds = [&](const float (&a)[8][QT]) {
+    float m2[QT];
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      float m1 = -INFINITY;
+      m2[j] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float v = isnan(a[i][j]) || row_begin + rs * SR + rho + 16 * i >=
+                                              row_end
+                            ? -INFINITY
+                            : a[i][j];
+        m2[j] = fmaxf(m2[j], fminf(m1, v));
+        m1 = fmaxf(m1, v);
+      }
+    }
+    // sort each query's 16 values descending across its 16 lanes (bitonic)
+#pragma unroll
+    for (int size = 2; size <= 16; size <<= 1)
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const bool up = ((rho & size) == 0) == ((rho & stride) == 0);
+#pragma unroll
+        for (int j = 0; j < QT; ++j) {
+          const float o = __shfl_xor_sync(FULL, m2[j], stride);
+          m2[j] = up ? fmaxf(m2[j], o) : fminf(m2[j], o);
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < QT; ++j) m2[j] = __shfl_sync(FULL, m2[j], 12, 16);
+    if (kp <= 26 && rho == 0) {
+#pragma unroll
+      for (int j = 0; j < QT; ++j)
+        if (thr_s[QT * kap + j] < m2[j]) {  // a padding query keeps +inf
+          thr_s[QT * kap + j] = m2[j];
+          thr_i[QT * kap + j] = EMPTY;
+        }
+    }
+    __syncwarp();
+    load_thresholds();
+  };
+
+  // the rows of a tile's column 0, loaded before the previous tile's
+  // survivors are handled
+  float4 g0[8];
+  auto first_column = [&](int t) {
+    mbar_wait(&full[t % stages], (t / stages) & 1);
+    const float* grow = ring + (t % stages) * STAGEF + rho * BOX;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      g0[i] = *reinterpret_cast<const float4*>(grow + 16 * i * BOX +
+                                               ((rho & 7) << 2));
+  };
+  if (rs < n_tiles) first_column(rs);
+  for (int t = rs, it = 1; t < n_tiles; t += rs_n, ++it) {
+    const int s = t % stages;
+    const float* grow = ring + s * STAGEF + rho * BOX;  // + 16 i BOX
+    const int row0 = row_begin + t * SR + rho;          // + 16 i
+    float acc[8][QT];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < QT; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if (kFull || c < nc) {
+        const int sw = (c ^ (rho & 7)) << 2;
+        float4 g[8], q[QT];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          g[i] = c == 0 ? g0[i]
+                        : *reinterpret_cast<const float4*>(grow +
+                                                           16 * i * BOX + sw);
+#pragma unroll
+        for (int j = 0; j < QT; ++j)
+          q[j] = *reinterpret_cast<const float4*>(qrow + 2 * j * BOX + 4 * c);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < QT; ++j) {
+            acc[i][j] = fmaf(g[i].x, q[j].x, acc[i][j]);
+            acc[i][j] = fmaf(g[i].y, q[j].y, acc[i][j]);
+            acc[i][j] = fmaf(g[i].z, q[j].z, acc[i][j]);
+            acc[i][j] = fmaf(g[i].w, q[j].w, acc[i][j]);
+          }
+      }
+    }
+    // the tile is in registers: the stage's last warp asks for its next
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&done[s], 1) == nqw - 1) {
+        done[s] = 0;
+        if (t + stages < n_tiles) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          stage_load(ring + s * STAGEF, &tmap, row_begin + (t + stages) * SR,
+                     &full[s]);
+        }
+      }
+    }
+    if (t + rs_n < n_tiles) first_column(t + rs_n);
+    if (it % REFRESH == 0) {  // gthr's keys, where better than the warp's
+      if (lane < nq) {
+        const int l = QT * (lane & 1) + (lane >> 1);
+        const unsigned long long g =
+            *(volatile unsigned long long*)(gq + lane);
+        if (g > entry_key(thr_s[l], thr_i[l]))
+          key_entry(g, thr_s[l], thr_i[l]);
+      }
+      __syncwarp();
+      load_thresholds();
+    }
+    if (it == 1) first_thresholds(acc);
+    // a score at or above its query's threshold, or NaN (a NaN-propagating
+    // max a query)
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < QT; ++j) {
+      float mx = acc[0][j];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) mx = max_nan(mx, acc[i][j]);
+      any |= !(mx < ts[j]);
+    }
+    if (!__any_sync(FULL, any)) continue;
+    // bit 8 i + j: score (i, j) at or above its query's threshold, or NaN
+    unsigned long long hit = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < QT; ++j)
+        hit |= (unsigned long long)!(acc[i][j] < ts[j]) << (8 * i + j);
+    const int n = __reduce_add_sync(FULL, __popcll(hit));  // >= survivors
+    if (n == 0) continue;
+    if (fill + n > QCAP && fill > 0) drain();
+    if (n <= QCAP) {  // few: each survivor by a shared atomic
+      for (unsigned long long m = hit; m; m &= m - 1) {
+        const int b = __ffsll(m) - 1, i = b >> 3, j = b & 7;
+        float v = pick(acc, i, j);
+        v = isnan(v) ? -INFINITY : v;
+        const int row = row0 + 16 * i;
+        if (row < row_end && better(v, row, thr_s[QT * kap + j],
+                                    thr_i[QT * kap + j])) {
+          const int qq = kap + 2 * j;
+          const int o = qq * QCAP + atomicAdd(&qcnt[qq], 1);
+          Bs[o] = v;
+          Bi[o] = row;
+        }
+      }
+      __syncwarp();
+      fill = __reduce_max_sync(FULL, lane < SQ ? qcnt[lane] : 0);
+      continue;
+    }
+    // many: rounds of (query j, rows 4 h ... 4 h + 3), a ballot a row
+    const unsigned half = kap ? 0xffff0000u : 0x0000ffffu;  // a query's lanes
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int j = 0; j < QT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bool keep[4];
+        float v[4];
+        unsigned b[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 4 * h + r;
+          v[r] = isnan(acc[i][j]) ? -INFINITY : acc[i][j];
+          keep[r] = (hit >> (8 * i + j) & 1ull) && row0 + 16 * i < row_end &&
+                    better(v[r], row0 + 16 * i, ts[j], ti[j]);
+          b[r] = __ballot_sync(FULL, keep[r]);
+        }
+        const int total = __popc(b[0]) + __popc(b[1]) + __popc(b[2]) +
+                          __popc(b[3]);
+        if (total == 0) continue;
+        if (fill > QCAP - ROUND_MAX) drain();
+        const int qq = kap + 2 * j;
+        int pos = qcnt[qq];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (keep[r]) {
+            const int o = qq * QCAP + pos + __popc(b[r] & half & below);
+            Bs[o] = v[r];
+            Bi[o] = row0 + 16 * (4 * h + r);
+          }
+          pos += __popc(b[r] & half);
+        }
+        __syncwarp();  // every lane read its base
+        if (rho == 0) qcnt[qq] = pos;
+        __syncwarp();
+        fill = max(fill, __reduce_max_sync(FULL, pos));
+      }
+  }
+  if (__any_sync(FULL, fill > 0)) drain();
+
+  if (rs_n > 1)  // the lists of the query block complete (named barrier 1)
+    asm volatile("bar.sync 1, %0;\n" ::"r"((int)blockDim.x) : "memory");
+  if (rs != 0) return;
+  for (int l = 0; l < nq; ++l) {
+    float s = Ls[l * 32 + lane];
+    int i = Li[l * 32 + lane];
+    for (int r = 1; r < rs_n; ++r) {
+      const float* os = Ls + r * WARPF;
+      const int* oi = Li + r * WARPF;
+      warp_merge32(s, i, os[l * 32 + lane], oi[l * 32 + lane], lane);
+    }
+    if (lane < kp) {
+      const long long o =
+          ((long long)(qw * SQ + l) * gridDim.x + blockIdx.x) * kp + lane;
+      part_s[o] = s;
+      part_i[o] = i;
+    }
+  }
+}
+
 // Allow `kernel` `smem` dynamic shared bytes on the current device; only a
 // larger size than before calls the runtime again.
 template <auto kernel>
@@ -798,6 +1303,60 @@ int launch_chunk(const float* queries, const float* gallery, int Q, int N,
     topk_chunk_kernel<QBW, true><<<grid, NTK, smem, st>>>(
         queries, gallery, Q, N, d, kp, chunk, part_s, part_i, scores);
   }
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query
+// (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+template <bool kFull>
+int launch_stream(const float* queries, const float* gallery, int Q, int N,
+                  int d, int kp, int chunk, int n_chunks, int rs_n,
+                  int stages, int smem, float* part_s, int* part_i,
+                  unsigned long long* gthr, cudaStream_t st) {
+  // the gallery as a [N, d] tensor in boxes of SR rows x 32 floats (columns
+  // past d and rows past N read as zeros), 128-byte swizzled
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)BOX, (cuuint32_t)SR};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(gallery), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  allow_smem<topk_chunk_stream_kernel<kFull>>(smem);
+  const int threads = 32 * ((Q + SQ - 1) / SQ * rs_n);
+  topk_chunk_stream_kernel<kFull><<<n_chunks, threads, smem, st>>>(
+      tmap, queries, Q, N, d, kp, chunk, rs_n, stages, part_s, part_i, gthr);
   return (int)cudaGetLastError();
 }
 
@@ -863,6 +1422,46 @@ int topk_gallery_f32(const void* queries, const void* gallery, int Q, int N,
                                     os, oi, ls, li, st);
   return launch_merge<true, false>(ps, pi, k, kp, n_chunks, Q, s2, smem2,
                                    os, oi, ls, li, st);
+}
+
+// The same search through the streaming pass 1 (topk_chunk_stream_kernel)
+// and the k <= 32 merge: queries [Q, d], gallery [N, d] f32 (contiguous,
+// the gallery 16-byte aligned, d a multiple of 4 up to 32), Q <= 128,
+// 1 <= k <= 32; the plan (ops/topk_gallery.py::stream_plan): chunk rows (a
+// multiple of 128), n_chunks CTAs, kp = min(k, chunk), rs_n warps a query
+// block, stages, and smem, which must equal stream_smem_bytes. part_s /
+// part_i: [Q, n_chunks, kp]; gthr: [Q] 64-bit keys, zero. Returns the
+// first CUDA error of the two launches, cudaErrorInvalidValue for
+// arguments outside these, or 0.
+int topk_gallery_stream_f32(const void* queries, const void* gallery, int Q,
+                            int N, int d, int k, int chunk, int n_chunks,
+                            int kp, int rs_n, int stages, int smem,
+                            void* part_s, void* part_i, void* gthr,
+                            void* out_s, void* out_i, void* stream) {
+  if (Q < 1 || Q > STREAM_MAX_Q || k < 1 || k > WARP_K || d < 4 || d % 4 ||
+      d > BOX || chunk < SR || chunk % SR || kp != (k < chunk ? k : chunk) ||
+      n_chunks != (N + chunk - 1) / chunk || rs_n < 1 ||
+      (Q + SQ - 1) / SQ * rs_n > STREAM_WARPS || stages < 2 ||
+      stages % rs_n ||
+      smem != stream_smem_bytes(Q, rs_n, stages) ||
+      ((uintptr_t)gallery & 15))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* qp = static_cast<const float*>(queries);
+  const float* gp = static_cast<const float*>(gallery);
+  float* ps = static_cast<float*>(part_s);
+  int* pi = static_cast<int*>(part_i);
+  unsigned long long* g = static_cast<unsigned long long*>(gthr);
+  const int err =
+      d == BOX ? launch_stream<true>(qp, gp, Q, N, d, kp, chunk, n_chunks,
+                                     rs_n, stages, smem, ps, pi, g, st)
+               : launch_stream<false>(qp, gp, Q, N, d, kp, chunk, n_chunks,
+                                      rs_n, stages, smem, ps, pi, g, st);
+  if (err != 0) return err;
+  topk_merge_warp_kernel<<<Q, MERGE_THREADS, 0, st>>>(
+      ps, pi, k, kp, n_chunks, static_cast<float*>(out_s),
+      static_cast<int64_t*>(out_i));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -39,6 +39,9 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         # keys2, smem2, part_s, part_i, scores1, lists2_s, lists2_i, out_s,
         # out_i, stream
         "topk_gallery_f32": ([_P, _P] + [_I] * 12 + [_P] * 8, _I),
+        # queries, gallery, Q, N, d, k, chunk, n_chunks, kp, rs, stages,
+        # smem, part_s, part_i, gthr, out_s, out_i, stream
+        "topk_gallery_stream_f32": ([_P, _P] + [_I] * 10 + [_P] * 6, _I),
     },
     "feature_windows": {
         # plane, starts, N, R, Wq, n_cols, elem_bytes, ht, seg_log2, cap,

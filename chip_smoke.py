@@ -15,7 +15,11 @@ exits non-zero):
    to 20,000 and k = N, at the boundaries of its launch plan (query-block
    widths, k <= 32 or above, d in {8, 32, 128}, N off the tile, scores in
    shared and in global memory), the evaluation's shapes Q = N = 2,000 at
-   d = 32 and 16, and every shape it is timed at; gather: bit-identical,
+   d = 32 and 16, and every shape it is timed at; the streaming pass 1 at
+   a catalogue's 4,194,304 rows and one more, Q in {1, 8, 100, 128}, k in
+   {1, 25, 32}, d in {8, 20, 32}, on duplicate rows and NaN queries, and
+   bit-identical to the chunked pass 1 at Q = 100, k = 25, with the count
+   of searches it took; gather: bit-identical,
    f32 and bf16, at the serving shape, 1 to 1,000 windows, a short strip,
    one column, 1 and 96 channels, starts at both ends of the legal range
    and beyond it (the all-ones pattern)), and each one's median time beside the
@@ -24,7 +28,8 @@ exits non-zero):
    library call's (``torch.topk(q @ g.T, k)``; one ``torch.gather`` over
    the expanded plane), CUDA events after a warm-up, at the serving
    shapes: Q = 100 excerpts, the streaming shapes Q = 1 and Q = 8, the
-   evaluation's Q = N = 2,000, and k = 1,024 and 2,048; the gather and its
+   evaluation's Q = N = 2,000, k = 1,024 and 2,048, and Q = 100 at a
+   catalogue's 4,194,304 rows (the streaming pass 1); the gather and its
    library call also by their device time (``device_us``,
    ``library_device_us``, torch.profiler: the event time of so short a
    launch is host time), with the share of the bound the kernel's device
@@ -528,19 +533,20 @@ def phase_build():
 # --- phase 3: kernels against their plain versions ----------------------------
 
 
-def check_topk(torch, q, g, k):
+def check_topk(torch, q, g, k, launch=None):
     """Kernel vs plain top-k on the card -> max abs score error.
 
     Scores must agree to TOPK_ATOL and the index sets must be equal; an
     index may differ only between rows whose scores tie within TOPK_ATOL
     at the k-th place (f32 sums in another order). Among equal kernel
-    scores the lower gallery index must come first."""
+    scores the lower gallery index must come first. ``launch(q, g, k)``
+    replaces ``topk_gallery`` (a pass 1 chosen by its plan)."""
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import (
         topk_gallery,
         topk_gallery_plain,
     )
 
-    s, i = topk_gallery(q, g, k)
+    s, i = (launch or topk_gallery)(q, g, k)
     ps, pi = topk_gallery_plain(q, g, k)
     torch.cuda.synchronize()
     assert s.shape == (q.shape[0], k) and i.dtype == torch.int64
@@ -558,6 +564,78 @@ def check_topk(torch, q, g, k):
         for j in got ^ want:  # only rows tied with the k-th score may swap
             assert abs(float(ref[r, j] - kth[r, 0])) <= TOPK_ATOL, \
                 f"row {r}: index {j} differs"
+    return err
+
+
+def phase_stream_checks(torch, randn, unit) -> float:
+    """Kernel 1's streaming pass 1 (``topk_chunk_stream_kernel``) on the
+    card -> max abs score error: against the plain version at a catalogue's
+    4,194,304 rows and one row more (off the tile), Q in {1, 8, 100, 128}
+    (1 and 8 through its plan by the private launcher: the plan keeps the
+    chunked pass 1 there), k in {1, 25, 32}, at d = 8 and 20; the tie rule
+    on duplicate rows and NaN queries; and at Q = 100, N = 4,194,304, k = 25
+    scores and indices bit-identical to the chunked pass 1."""
+    from audio_sheet_retrieval_tpu_torch.ops import topk_gallery as tk
+
+    def stream(q, g, k):
+        p = tk.stream_plan(q.shape[0], g.shape[0], k, q.shape[1])
+        return tk._launch(q, g, k, p)
+
+    def chunked(q, g, k):
+        p = tk.chunk_plan(q.shape[0], g.shape[0], k, q.shape[1])
+        return tk._launch(q, g, k, p)
+
+    err = 0.0
+    before = tk.topk_gallery.stream_launches
+    big = unit(randn(4_194_305, 32))
+    for n in (4_194_304, 4_194_305):
+        g = big[:n]
+        for qn in (1, 8, 100, 128):
+            engages = tk.plan(qn, n, 25, 32).stream
+            for k in (1, 25, 32):
+                e = check_topk(torch, unit(randn(qn, 32)), g, k,
+                               None if engages else stream)
+                err = max(err, e)
+                emit("kernels", kernel="topk_gallery", case="stream", Q=qn,
+                     N=n, d=32, k=k, by_plan=engages, max_abs_err=e)
+    for d in (8, 20):
+        e = check_topk(torch, unit(randn(100, d)), unit(randn(300_001, d)),
+                       25)
+        err = max(err, e)
+        emit("kernels", kernel="topk_gallery", case="stream", Q=100,
+             N=300_001, d=d, k=25, max_abs_err=e)
+    # duplicate rows: the lower index wins every tie
+    base = randn(500, 32)
+    g = base.repeat(800, 1).contiguous()        # row r == row r % 500
+    for qn in (1, 24, 70, 100):
+        for k in (25, 32):
+            q = randn(qn, 32)
+            s, i = stream(q, g, k)
+            ps, pi = tk.topk_gallery_plain(q, g, k)
+            assert torch.equal(i, pi), \
+                f"streaming pass 1, duplicate rows: Q={qn} k={k}"
+            err = max(err, float((s - ps).abs().max()))
+    # NaN queries count as -inf: their lists are rows 0 .. k - 1
+    for qn in (9, 100):
+        q = randn(qn, 32)
+        q[[1, 4]] = float("nan")
+        s, i = stream(q, big[:1_000_000], 25)
+        torch.cuda.synchronize()
+        assert bool(torch.isneginf(s[[1, 4]]).all())
+        assert torch.equal(i[[1, 4]].cpu(), torch.arange(25).repeat(2, 1))
+        assert bool(torch.isfinite(s[0]).all())
+    # the cell's shape: bit for bit the chunked pass 1's answer
+    q = unit(randn(100, 32))
+    g = big[:4_194_304]
+    assert tk.plan(100, 4_194_304, 25, 32).stream
+    a, b = tk.topk_gallery(q, g, 25), chunked(q, g, 25)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
+        "streaming and chunked pass 1 differ at the catalogue's shape"
+    launched = tk.topk_gallery.stream_launches - before
+    assert launched > 0, "no search took the streaming pass 1"
+    emit("kernels", kernel="topk_gallery", case="stream vs chunked",
+         Q=100, N=4_194_304, k=25, bit_identical=True,
+         stream_launches=launched)
     return err
 
 
@@ -720,6 +798,7 @@ def phase_kernels(torch):
             assert torch.equal(i[[1, 4]].cpu(), torch.arange(k).repeat(2, 1))
             assert bool(torch.isfinite(s[0]).all())
     emit("kernels", kernel="topk_gallery", case="anti/dup/nan", ok=True)
+    topk_err = max(topk_err, phase_stream_checks(torch, randn, unit))
 
     # the evaluation's shapes: every test pair a query and a gallery row
     for d in (32, 16):
@@ -739,7 +818,8 @@ def phase_kernels(torch):
                      (100, 1_000_000, 25), (1, 12_000, 25), (8, 12_000, 25),
                      (1, 1_000_000, 25), (8, 1_000_000, 25),
                      (2000, 2000, 25),
-                     (100, 100_000, 1024), (100, 100_000, 2048)):
+                     (100, 100_000, 1024), (100, 100_000, 2048),
+                     (100, 4_194_304, 25)):
         g, q = unit(randn(n, 32)), unit(randn(qn, 32))
         iters = 5 if k > 128 else 20
         b_ms, b_by = topk_bound(qn, n, 32, k)
@@ -863,6 +943,7 @@ def zero_launches():
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 
     topk_gallery.launches = 0
+    topk_gallery.stream_launches = 0
     win.gather_feature_windows.launches = 0
     dtw.dtw_accumulate.launches = 0
     dtw.dtw_traceback.launches = 0
@@ -876,6 +957,7 @@ def read_launches() -> dict:
     from audio_sheet_retrieval_tpu_torch.ops.topk_gallery import topk_gallery
 
     return {"topk_gallery": topk_gallery.launches,
+            "topk_gallery_stream": topk_gallery.stream_launches,
             "gather_feature_windows": win.gather_feature_windows.launches,
             "dtw_accumulate": dtw.dtw_accumulate.launches,
             "dtw_traceback": dtw.dtw_traceback.launches,
@@ -5490,6 +5572,9 @@ def main() -> int:
         "audio_sheet_retrieval_tpu/ops/dtw.py:94")
     launches["dtw"] = launches["dtw_accumulate"]
     kernel_stats["topk_gallery"]["db_shard"] = ctx["shard_topk"]
+    # searches through the streaming pass 1 (phases 3-20)
+    kernel_stats["topk_gallery"]["stream_launches"] = \
+        launches["topk_gallery_stream"]
     # the rANS kernels: a JAX lax.scan each (not Pallas); the decode's
     # headline shape is the tutorial page's segments (phase 15's OMR
     # path), the encode's a map plane of that page

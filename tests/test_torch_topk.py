@@ -6,6 +6,9 @@ On the CPU the wrapper runs the plain version (matmul + stable sort); the
 CUDA kernel itself is compared with that plain version on the card by
 chip_smoke.py."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from audio_sheet_retrieval_tpu.retrieval.gallery import (
 )
 from audio_sheet_retrieval_tpu_torch.ops import topk_gallery as tk
 from audio_sheet_retrieval_tpu_torch.retrieval.gallery import DeviceGallery
+from port_bench import trace
 
 
 def _both(n, qn, d, seed):
@@ -139,6 +143,9 @@ def test_launch_plan_fits_the_card(d):
     for q, n, k, _ in (g for g in PLAN_GRID if g[3] == d):
         p = tk.plan(q, n, k, d)
         where = (q, n, k, d, p)
+        if p.stream:  # the streaming pass 1: one block, one CTA a chunk
+            check_stream_plan(p, q, n, k, d)
+            continue
         assert p.qbw in tk.QBWS and p.q_blocks * p.qbw >= q > \
             (p.q_blocks - 1) * p.qbw, where
         assert p.q_blocks <= 2**31 - 1 and q <= 2**31 - 1, where
@@ -167,10 +174,12 @@ def test_launch_plan_fits_the_card(d):
 
 
 def test_launch_plan_picks_wide_query_blocks():
-    """At Q = 100 four 32-query blocks share each chunk; one frame gets a
-    one-query block; what outgrows shared memory narrows the block, or
-    shortens the chunk of an 8-query block."""
-    assert tk.plan(100, 1_000_000, 25, 32)[:2] == (32, 4)
+    """At Q = 100 four 32-query blocks share each chunk of the chunked pass
+    1 (1,000,000 rows take the streaming pass 1, above the sweep's
+    threshold); one frame gets a one-query block; what outgrows shared
+    memory narrows the block, or shortens the chunk of an 8-query block."""
+    assert tk.plan(100, 1_000_000, 25, 32).stream
+    assert tk.chunk_plan(100, 1_000_000, 25, 32)[:2] == (32, 4)
     assert tk.plan(1, 1_000_000, 25, 32).qbw == 1
     assert tk.plan(8, 12_000, 25, 32).qbw == 8
     assert tk.plan(9, 12_000, 25, 32).qbw == 32
@@ -186,6 +195,81 @@ def test_launch_plan_picks_wide_query_blocks():
     assert p.lists1_global and p.lists2_global
     p = tk.plan(3, 100_000, 12_000, 128)
     assert p.lists1_global and not p.lists2_global
+
+
+def check_stream_plan(p, q, n, k, d):
+    """A streaming plan's invariants: one block of 8-query warps that holds
+    Q, at most STREAM_WARPS warps, whole 128-row tiles in each chunk, the
+    chunks covering [0, N) once, its shared memory within the card's."""
+    where = (q, n, k, d, p)
+    assert p.stream and p.q_blocks == 1, where
+    assert p.qbw % tk.STREAM_SQ == 0 and p.qbw - tk.STREAM_SQ < q <= p.qbw
+    assert p.qbw // tk.STREAM_SQ * p.rs <= tk.STREAM_WARPS, where
+    assert p.stages >= 2 and p.stages % p.rs == 0, where
+    assert p.chunk % tk.TR == 0, where
+    assert p.n_chunks * p.chunk >= n > (p.n_chunks - 1) * p.chunk, where
+    assert p.n_chunks <= tk.SMS, where
+    assert p.kp == min(k, p.chunk) and not p.lists1_global, where
+    assert p.smem1 == tk.stream_smem_bytes(q, p.rs, p.stages), where
+    assert p.smem1 <= tk.SMEM_MAX, where
+
+
+# (kind, Q, N, k, d): the sweep's catalogue shapes above the threshold take
+# the streaming pass 1; the cells' and the serving, fit and shard shapes
+# below it, and every k > 32, keep the chunked pass 1; the streaming plan
+# fits shared memory at every d and Q it takes; its chunks cover N off the
+# tile once
+STREAM_PLAN_CASES = (
+    [("streams", 100, n, 25, 32) for n in (1_000_000, 4_194_304)]
+    + [("streams", q, 4_194_304, k, 32) for q in (48, 64, 100, 128)
+       for k in (1, 25, 32)]
+    + [("chunked", q, n, 25, 32) for q, n in ((100, 20_821), (100, 12_000),
+                                              (1_000, 1_000), (100, 6_000),
+                                              (100, 100_000), (100, 300_000),
+                                              (1, 4_194_304), (8, 4_194_304),
+                                              (32, 4_194_304))]
+    + [("chunked", 100, 4_194_304, k, 32) for k in (33, 128, 1024)]
+    + [("chunked", 100, 4_194_304, 25, 128)]
+    + [("fits", q, 4_194_304, 25, d) for d in (8, 32, 128)
+       for q in (1, 8, 33, 100, 128)]
+    + [("covers", q, n, 25, 32) for q in (48, 100, 128)
+       for n in (4_194_305, 1_000_001, 1_000_000)])
+
+
+@pytest.mark.parametrize("kind,q,n,k,d", STREAM_PLAN_CASES)
+def test_plan_picks_the_streaming_pass_1(kind, q, n, k, d):
+    p = tk.plan(q, n, k, d)
+    if kind == "streams":
+        check_stream_plan(p, q, n, k, d)
+    elif kind == "chunked":
+        assert not p.stream and p == tk.chunk_plan(q, n, k, d)
+    elif kind == "fits":  # the streaming plan where d <= 32, else chunked
+        if d <= 32:
+            check_stream_plan(tk.stream_plan(q, n, k, d), q, n, k, d)
+        else:
+            assert not p.stream and p.smem1 <= tk.SMEM_MAX
+    else:  # each row in exactly one chunk
+        check_stream_plan(p, q, n, k, d)
+        starts = np.arange(p.n_chunks) * p.chunk
+        ends = np.minimum(starts + p.chunk, n)
+        assert starts[0] == 0 and ends[-1] == n
+        assert (starts[1:] == ends[:-1]).all() and (ends > starts).all()
+
+
+def test_kernel_names_are_read_as_kernel_1():
+    """Every kernel of csrc/topk_gallery.cu is counted as kernel 1 by the
+    benchmark's trace reader (topk_roofline) and never as a conv or a pool
+    (conv_roofline)."""
+    src = os.path.join(os.path.dirname(tk.__file__), os.pardir, "csrc",
+                       "topk_gallery.cu")
+    with open(src) as fp:
+        text = fp.read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
+                       r"\([^()]*\))*\)\s*)?(\w+)\s*\(", text)
+    assert "topk_chunk_stream_kernel" in names and len(names) == 5
+    for name in names:
+        assert trace.is_topk(name), name
+        assert trace.kernel_kind(name) == "other", name
 
 
 def test_device_gallery_matches_jax():
