@@ -5,12 +5,21 @@ plain reference, the metrics.
 files are found by those names:
 
 * ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives): the model
-  configuration as it is run, and its weights;
-* ``traffic/<mix>.json``: the mix's parameters, and the driver that sends
-  it (``drivers/<driver>.py``);
+  configuration as it is run, its weights, and its model family
+  (``families/<family>.py``);
+* ``traffic/<mix>.json``: the mix's parameters, the driver that sends it
+  (``drivers/<driver>.py``) and, optionally, its arrivals
+  (``{"process": "poisson", "rate_per_s": R}``: an open loop; without the
+  key, a closed loop);
 * ``limits/<cell>.json``: the limit of each number the check compares;
 * ``metrics/<metric>.py``: ``read(run)`` -> the metric's value, or None
   where the run has nothing to read it from.
+
+A family module has ``corpus(seed, mix)`` (the inputs made from the seed),
+``program_config(config)`` (the port's configuration object),
+``raw_weights(config, seed, corpus, device, root)`` (the weights as the
+reference reads them) and ``program_params(config, cfg, raw, device,
+root)`` (the port's model, by its own loader).
 
 A driver module has ``setup(ctx) -> state``, ``call(state) -> answer`` (one
 timed request, ended on the host: its answer downloaded or the device
@@ -41,9 +50,9 @@ BANNED = ("jax", "jaxlib", "flax", "audio_sheet_retrieval_tpu")
 
 
 def load_module(path: str, name: str):
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{path} not found")
     spec = importlib.util.spec_from_file_location(name, path)
-    if spec is None:
-        raise FileNotFoundError(path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -87,6 +96,10 @@ class Bench:
         return load_module(os.path.join(self.dir, "drivers", name + ".py"),
                            f"port_bench_driver_{name}")
 
+    def family(self, name: str):
+        return load_module(os.path.join(self.dir, "families", name + ".py"),
+                           "port_bench_family_" + _ident(name))
+
     def metrics(self, workload: str, section: str) -> List[dict]:
         """The ``section`` ("end_to_end" or "per_layer") metrics this cell
         reports: those that list it, and those that list no cells."""
@@ -95,8 +108,11 @@ class Bench:
 
     def reader(self, metric: str) -> Callable:
         path = os.path.join(self.dir, "metrics", metric + ".py")
-        return load_module(path, "port_bench_metric_"
-                           + metric.replace(".", "_").replace("-", "_")).read
+        return load_module(path, "port_bench_metric_" + _ident(metric)).read
+
+
+def _ident(name: str) -> str:
+    return name.replace(".", "_").replace("-", "_")
 
 
 def banned_modules() -> List[str]:
@@ -127,19 +143,17 @@ def device_info(device) -> dict:
 
 def setup_cell(bench: Bench, workload: str, seed: int, device):
     """Everything before the window -> (driver, state, ctx)."""
-    from port_bench import corpus as corpus_mod
-    from port_bench import weights
-
     marks = [time.perf_counter()]
     w = bench.workload(workload)
     config = bench.config(w["config"])
     mix = bench.mix(w["traffic"])
     drv = bench.driver(mix["driver"])
-    corpus = corpus_mod.make_corpus(seed, mix)
+    family = bench.family(config["family"])
+    corpus = family.corpus(seed, mix)
     marks.append(time.perf_counter())
-    cfg = weights.program_config(config)
-    raw = weights.raw_weights(config, seed, corpus, device, bench.root)
-    params = weights.program_params(config, cfg, raw, device, bench.root)
+    cfg = family.program_config(config)
+    raw = family.raw_weights(config, seed, corpus, device, bench.root)
+    params = family.program_params(config, cfg, raw, device, bench.root)
     marks.append(time.perf_counter())
     ctx = SimpleNamespace(seed=seed, device=device, config=config, mix=mix,
                           cfg=cfg, corpus=corpus, raw=raw, params=params,
@@ -151,6 +165,42 @@ def setup_cell(bench: Bench, workload: str, seed: int, device):
     print(f"set-up s: corpus {spent[0]:.3f}, weights {spent[1]:.3f}, "
           f"driver {spent[2]:.3f}", file=sys.stderr)
     return drv, state, ctx
+
+
+ARRIVALS_STREAM = 0xA7713
+
+
+def due_times(arrivals: dict, seconds: float) -> np.ndarray:
+    """An open loop's due times in [0, ``seconds``), seconds from the
+    window's start: a Poisson process at ``rate_per_s`` given its expected
+    count, round(rate x seconds) arrivals at sorted uniform times. One
+    schedule for every seed (drawn from a stream of its own, not from the
+    seed): the seed still orders the queries, but cannot make one run's
+    arrivals burstier than another's."""
+    if arrivals.get("process") != "poisson":
+        raise ValueError(f"unknown arrival process in {arrivals!r}")
+    rate = float(arrivals["rate_per_s"])
+    if not rate > 0:
+        raise ValueError(f"rate_per_s must be positive: {arrivals!r}")
+    rng = np.random.default_rng(np.random.SeedSequence(ARRIVALS_STREAM))
+    return np.sort(rng.uniform(0.0, seconds, int(round(rate * seconds))))
+
+
+def _wait_until(t: float) -> None:
+    """Spin until ``t``. A sleep, even one that leaves its last 0.2 ms to a
+    spin, woke up to 2.4 ms late (99th percentile) and made the calls after
+    it 6 % slower on the card's host; a spin is late by microseconds."""
+    while time.perf_counter() < t:
+        pass
+
+
+def _call(drv, state):
+    """One timed call -> (its answer, 1 where it failed else 0)."""
+    try:
+        return drv.call(state), 0
+    except RuntimeError as exc:
+        print(f"call failed: {exc}", file=sys.stderr)
+        return None, 1
 
 
 def measure(drv, state, seconds: float, device, traced: bool):
@@ -165,17 +215,51 @@ def measure(drv, state, seconds: float, device, traced: bool):
         t1 = t_start
         while t1 - t_start < seconds:
             t0 = time.perf_counter()
-            try:
-                ans = drv.call(state)
-            except RuntimeError as exc:
-                failed += 1
-                print(f"call failed: {exc}", file=sys.stderr)
-                ans = None
+            ans, bad = _call(drv, state)
             t1 = time.perf_counter()
+            failed += bad
             lat.append(t1 - t0)
             answers.append(None if ans is None else drv.keep(ans))
         window = t1 - t_start
     return answers, np.asarray(lat), failed, window, holder.get("trace")
+
+
+def measure_open(drv, state, due: np.ndarray, device, traced: bool):
+    """The open loop: one client serves each due time (seconds from the
+    window's start) in order, a call starting at its due time or when the
+    call before it has answered, whichever is later; the window ends at
+    the last answer -> (answers, latencies [s] from each due time to its
+    answer, service [s] (each call's own time), lateness [s] (start less
+    due time, where the client was free before the due time), failed,
+    window seconds, trace)."""
+    from port_bench import trace as trace_mod
+
+    answers, lat, svc, late, failed = [], [], [], [], 0
+    with trace_mod.device_trace(traced) as holder:
+        _sync(device)
+        t_start = time.perf_counter()
+        t1 = t_start
+        for t_due in t_start + due:
+            if time.perf_counter() < t_due:   # the client is free
+                _wait_until(t_due)
+                late.append(time.perf_counter() - t_due)
+            t0 = time.perf_counter()
+            ans, bad = _call(drv, state)
+            t1 = time.perf_counter()
+            failed += bad
+            lat.append(t1 - t_due)
+            svc.append(t1 - t0)
+            answers.append(None if ans is None else drv.keep(ans))
+        window = t1 - t_start
+    return (answers, np.asarray(lat), np.asarray(svc), np.asarray(late),
+            failed, window, holder.get("trace"))
+
+
+def _ms_quantiles(x: np.ndarray) -> str:
+    if x.size == 0:
+        return "none"
+    q = np.percentile(x, [50, 99, 100]) * 1e3
+    return f"p50 {q[0]:.4f} ms, p99 {q[1]:.4f} ms, max {q[2]:.4f} ms"
 
 
 def judge(checks: Dict[str, float], limits: Dict[str, float]):
@@ -203,8 +287,17 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
     _sync(device)
     setup_s = time.perf_counter() - t0
 
-    answers, lat, failed, window, tr = measure(drv, state, seconds, device,
-                                               traced)
+    arrivals = ctx.mix.get("arrivals")
+    if arrivals is None:
+        answers, lat, failed, window, tr = measure(drv, state, seconds,
+                                                   device, traced)
+        service, lateness = lat, None
+    else:
+        answers, lat, service, lateness, failed, window, tr = measure_open(
+            drv, state, due_times(arrivals, seconds), device, traced)
+        print(f"open loop: {len(answers)} due in {window:.3f} s; lateness "
+              f"where the client was free ({lateness.size}): "
+              + _ms_quantiles(lateness), file=sys.stderr)
     dev = device_info(device)
     work = drv.work(state, answers)
     produced = drv.produced(state, answers)
@@ -218,7 +311,8 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
                        bench.limits(workload))
 
     run = SimpleNamespace(seconds=window, setup_s=setup_s, latencies=lat,
-                          work=work, config=ctx.config, mix=ctx.mix,
+                          service=service, lateness=lateness, work=work,
+                          config=ctx.config, mix=ctx.mix,
                           peaks=roofline.peaks(dev["kind"]), trace=tr)
     section = "per_layer" if traced else "end_to_end"
     metrics = {}

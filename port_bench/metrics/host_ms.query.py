@@ -1,5 +1,5 @@
-"""Host time a query: the mean host-clock query time less the device's
-busy time a query, in ms."""
+"""Host time a query: the mean of each call's own host-clock time less the
+device's busy time a query, in ms."""
 
 from port_bench import trace
 
@@ -8,4 +8,4 @@ def read(run):
     if run.trace is None or not run.work.get("queries"):
         return None
     n = run.work["calls"]
-    return (float(run.latencies.sum()) - trace.busy_s(run.trace)) / n * 1e3
+    return (float(run.service.sum()) - trace.busy_s(run.trace)) / n * 1e3

@@ -1,5 +1,6 @@
-"""The 95th percentile of every query's host-clock time, from the call to
-the downloaded vote counts, over all queries of the window."""
+"""The 95th percentile of every query's host-clock latency, over all
+queries of the window: what a user waits, from the call (in an open loop,
+from the query's due time) to the downloaded vote counts."""
 
 import numpy as np
 

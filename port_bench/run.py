@@ -4,7 +4,8 @@
         --trace <0|1>
 
 Loads and warms up the cell (set-up, reported as ``setup_s``), measures for
-``--seconds``, checks what the timed path produced against the plain
+``--seconds`` (an open loop: every query due in them, to its answer),
+checks what the timed path produced against the plain
 reference, and prints one JSON object as its last line of standard output:
 with ``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
 per-layer metrics read from a device trace of the window. The numbers the

@@ -77,7 +77,8 @@ def test_topk_roofline_and_query_mfu():
                     names=["void (anonymous namespace)::topk_chunk_warp_"
                            "kernel<32>(float const*)", "elu"])
     run = SimpleNamespace(trace=tr, seconds=2.0, peaks=H100, config=RSZ,
-                          work=work, latencies=np.full(10, 0.2))
+                          work=work, latencies=np.full(10, 0.2),
+                          service=np.full(10, 0.2))
     assert read("topk_roofline.query", run) == pytest.approx(25.0)
     flops = 1000 * roofline.embed_flops(RSZ, 2) + 10 * 2 * q * n * d
     assert read("mfu.query", run) == pytest.approx(100 * flops / 2 / 67e12)

@@ -20,8 +20,10 @@ import torch
 from conftest import ROOT
 from port_bench import harness
 
-CELLS = ["rsz-index", "cont-index", "rsz-a2s-library", "cont-s2a"]
-QUERY_CELLS = ["rsz-a2s-library", "cont-s2a"]
+CELLS = ["rsz-index", "cont-index", "rsz-a2s-library", "cont-s2a",
+         "rsz-a2s-open"]
+QUERY_CELLS = ["rsz-a2s-library", "cont-s2a", "rsz-a2s-open"]
+A2S_CELLS = ["rsz-a2s-library", "rsz-a2s-open"]
 SEED = 2**31 + 77
 
 
@@ -76,7 +78,7 @@ def _plant_query(monkeypatch, fault, cell):
     from audio_sheet_retrieval_tpu_torch.retrieval import gallery
 
     if fault == "half":
-        name = ("embed_spec_excerpts" if cell == "rsz-a2s-library"
+        name = ("embed_spec_excerpts" if cell in A2S_CELLS
                 else "embed_strip_windows")
         orig = getattr(gallery, name)
 

@@ -140,3 +140,34 @@ def test_files_under_paths_are_named_from_name_characters():
         for f in files:
             rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
             assert PATH.match(rel), rel
+
+
+def test_every_config_names_a_family_whose_module_exists():
+    for c in SPEC["configs"]:
+        family = json.load(open(os.path.join(ROOT, c["file"])))["family"]
+        assert NAME.match(family), c["name"]
+        assert os.path.isfile(os.path.join(BENCH, "families",
+                                           family + ".py")), family
+
+
+def _mixes():
+    return {f[:-5]: json.load(open(os.path.join(BENCH, "traffic", f)))
+            for f in sorted(os.listdir(os.path.join(BENCH, "traffic")))}
+
+
+@pytest.mark.parametrize("name", sorted(_mixes()))
+def test_arrivals_name_a_known_process_and_a_positive_rate(name):
+    arrivals = _mixes()[name].get("arrivals")
+    if arrivals is None:
+        return
+    assert set(arrivals) == {"process", "rate_per_s"}
+    assert arrivals["process"] == "poisson"
+    rate = arrivals["rate_per_s"]
+    assert isinstance(rate, (int, float)) and rate > 0
+
+
+@pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
+def test_a_cell_with_arrivals_does_not_report_queries_per_s(w):
+    if "arrivals" in _mixes()[w["traffic"]]:
+        assert "queries_per_s" not in _reports(w["name"], "end_to_end")
+        assert "query_p95_ms" in _reports(w["name"], "end_to_end")
