@@ -5,9 +5,13 @@ sheet_utils/omr.py:306-697, OpticalMusicRecognizer): system detection
 (bar-projection gap cleanup -> otsu threshold -> morph close -> connected
 components >= 50k px -> bbox shrink -> grid snapping), bar detection (blob
 geometry filters + per-system assignment), note-head detection (local
-maxima), and the general primitive detector. The probability maps come
-from the U-Nets on the device (``omr/inference.py``) and are downloaded
-first; the geometry is host numpy, as in the JAX package.
+maxima), and the general primitive detector. System detection runs on the
+device (``detect_systems_device``): the page goes up raw, both maps stay
+where the U-Nets make them and the geometry runs there
+(``omr/geometry.py``, the same bits as the JAX package's host geometry);
+only the boxes come down. The other detectors download their maps from
+the U-Nets (``omr/inference.py``) and run host numpy, as in the JAX
+package.
 
 The JAX package calls ``cv2`` for four operations; here each is numpy and
 scipy with cv2's result, bit for bit:
@@ -15,7 +19,7 @@ scipy with cv2's result, bit for bit:
 * ``cv2.connectedComponentsWithStats(connectivity=8)`` -> ``scipy.ndimage.
   label`` (8-connected), relabelled to cv2's order (``label_cv2_order``).
   The order matters: ``detect_bars`` emits bars in label order when it is
-  given no systems, and ``_shrink_bounding_box`` selects by label.
+  given no systems.
 * ``cv2.blur`` with a 1x3 / 3x1 box -> ``uniform_filter1d(size 3,
   mode="mirror")`` (cv2's BORDER_REFLECT_101).
 * ``cv2.morphologyEx`` (MORPH_CLOSE, MORPH_OPEN) -> ``morphology_ex``: cv2's
@@ -32,11 +36,17 @@ scipy with cv2's result, bit for bit:
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+import torch
 from scipy import ndimage
+
+from audio_sheet_retrieval_tpu_torch.omr import geometry
+from audio_sheet_retrieval_tpu_torch.omr.inference import prepare_page_device
+from audio_sheet_retrieval_tpu_torch.utils import profiling
 
 
 # --- skimage-equivalent primitives -------------------------------------------
@@ -179,43 +189,75 @@ def peak_local_max_1d(signal: np.ndarray, threshold_rel: float = 0.5
     return np.nonzero(mask)[0].reshape(-1, 1)
 
 
-# --- system grid snapping (reference omr.py:23-93) ----------------------------
-
-
-def snap_system_to_grid(image: np.ndarray, min_row: int, max_row: int,
-                        min_col: int, max_col: int, thresh: int = 10):
-    """Snap a detected system bbox to staff-line / barline edges."""
-    img = 1.0 - image
-    # cv2.blur(img, (1, 3)) and (3, 1): 3-tap boxes, BORDER_REFLECT_101
-    imagex = ndimage.uniform_filter1d(img, 3, axis=0, mode="mirror")
-    imagey = ndimage.uniform_filter1d(img, 3, axis=1, mode="mirror")
-
-    edge_signal = imagey.mean(axis=1)
-    cand = peak_local_max_1d(edge_signal)
-    if len(cand):
-        d_min = np.abs(min_row - cand)
-        d_max = np.abs(max_row - cand)
-        i_min, i_max = np.argmin(d_min), np.argmin(d_max)
-        if d_min.ravel()[i_min] < thresh and d_max.ravel()[i_max] < thresh:
-            min_row = int(cand[i_min, 0])
-            max_row = int(cand[i_max, 0])
-
-    edge_signal = imagex[min_row:max_row, :].mean(axis=0)
-    cand = peak_local_max_1d(edge_signal)
-    if len(cand):
-        d_min = np.abs(min_col - cand)
-        # NOTE reference quirk preserved (omr.py:79): the right edge is
-        # matched against max_row, not max_col
-        d_max = np.abs(max_row - cand)
-        i_min, i_max = np.argmin(d_min), np.argmin(d_max)
-        if d_min.ravel()[i_min] < thresh and d_max.ravel()[i_max] < thresh:
-            min_col = int(cand[i_min, 0])
-            max_col = int(cand[i_max, 0])
-
-    return min_row, max_row, min_col, max_col
-
-
 # --- the recognizer ------------------------------------------------------------
+
+
+PAGE_SHAPES = 2    # page shapes whose stages a recognizer keeps
+
+
+class _PageStages:
+    """``detect_systems_device`` for pages of one shape and dtype: the
+    page's buffer on the device and the three stages that read it (the
+    system U-Net with the page's preparation, the bar U-Net, the
+    geometry), whose outputs ``system_probs``, ``bar_probs`` and ``boxes``
+    stay there until the next page. The stages run eagerly until
+    ``capture`` makes them three CUDA graphs sharing one memory pool
+    (after two eager runs on a side stream: kernel builds, cuDNN's
+    workspaces); then a page is copied into the buffer and the graphs
+    replayed, the outputs being the graphs' own buffers."""
+
+    def __init__(self, omr, shape, dtype, device):
+        self.omr, self.device = omr, device
+        self.page = torch.zeros(shape, dtype=dtype, device=device)
+        self.graphs = None
+        self.tiles = [len(d.tile_origins(*shape)[1]) if d else 0
+                      for d in (omr.system_detector, omr.bar_detector)]
+
+    def _stage(self, i: int) -> None:
+        if i == 0:
+            self.image, self.x = prepare_page_device(self.page)
+            self.system_probs = self.omr.system_detector \
+                .predict_proba_device(self.x)
+        elif i == 1:
+            self.bar_probs = self.omr._bar_probs(self.x, self.system_probs)
+        else:
+            self.boxes = geometry.detect_systems(
+                self.system_probs, self.bar_probs, self.image)
+
+    def capture(self) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                for i in range(3):
+                    self._stage(i)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
+        for i, graph in enumerate(graphs):
+            with torch.cuda.graph(graph, pool=graphs[0].pool() if i
+                                  else None):
+                self._stage(i)
+        self.graphs = graphs
+
+    def _run(self, i: int) -> None:
+        if self.graphs is None:
+            self._stage(i)
+        else:
+            self.graphs[i].replay()
+
+    def __call__(self, page) -> torch.Tensor:
+        with profiling.span("upload"):
+            src = page if isinstance(page, torch.Tensor) \
+                else torch.from_numpy(np.ascontiguousarray(page))
+            self.page.copy_(src)
+        for i, tiles in enumerate(self.tiles):
+            with profiling.span("unet", device=self.device):
+                if self.graphs is not None:    # eagerly the net notes them
+                    profiling.note("tiles", tiles)
+                self._run(i)
+        with profiling.span("geometry"):
+            self._run(2)
+        return self.boxes
 
 
 class OpticalMusicRecognizer:
@@ -223,6 +265,7 @@ class OpticalMusicRecognizer:
 
     def __init__(self, note_detector=None, system_detector=None,
                  bar_detector=None):
+        self._stages = OrderedDict()    # (shape, u8) -> _PageStages
         self.note_detector = note_detector
         self.system_detector = system_detector
         self.bar_detector = bar_detector
@@ -239,55 +282,55 @@ class OpticalMusicRecognizer:
             self.primitive_detector_ch[primitive] = detector_ch
             self.primitive_channel_mapping[primitive] = channel
 
-    def detect_systems(self, image: np.ndarray, verbose: bool = False
-                       ) -> np.ndarray:
-        """-> [N, 4, 2] corner arrays (TL, TR, BR, BL) of staff systems."""
-        MIN_AREA = 50000
-        if image.ndim == 2:
-            image = image[None, None]
-        system_probs = self.system_detector.predict_proba(image)
+    def page_stages(self, page) -> _PageStages:
+        """The stages that take pages of ``page``'s shape and dtype. A
+        recognizer keeps those of its ``PAGE_SHAPES`` most recent shapes;
+        on a card a shape's stages are captured as CUDA graphs at its
+        second page, so a page of a shape seen once runs eagerly and
+        leaves no graph pool behind."""
+        u8 = str(page.dtype) in ("uint8", "torch.uint8")
+        key = (tuple(page.shape), u8)
+        stages = self._stages.pop(key, None)
+        if stages is None:
+            stages = _PageStages(self, key[0],
+                                 torch.uint8 if u8 else torch.float32,
+                                 self.system_detector.device)
+        elif stages.graphs is None and stages.device.type == "cuda":
+            stages.capture()
+        self._stages[key] = stages
+        while len(self._stages) > PAGE_SHAPES:
+            self._stages.popitem(last=False)
+        return stages
 
-        # clean up space between systems via the barline projection
-        if self.bar_detector:
-            bar_probs = self.bar_detector.predict_proba(image)
-            projection = bar_probs.sum(1)
-        else:
-            projection = system_probs.sum(1)
-        thresh = otsu_threshold(projection)
-        space_indices = np.nonzero(projection < thresh)[0]
-        if len(space_indices):
-            start_idx = prev_idx = space_indices[0]
-            for idx in space_indices[1:]:
-                if (idx - prev_idx) == 1:
-                    prev_idx = idx
-                else:
-                    if prev_idx - start_idx > 15:
-                        system_probs[start_idx:prev_idx, :] = 0
-                    start_idx = prev_idx = idx
-            if prev_idx - start_idx > 15:
-                system_probs[start_idx:prev_idx, :] = 0
+    def detect_systems_device(self, page) -> torch.Tensor:
+        """A page [H, W] (a host array or a tensor: u8 as scanned, or
+        float32 in [0, 1] as ``prepare_image`` gives it) -> the system
+        boxes as ``geometry.detect_systems``' int32 buffer, on the system
+        detector's device, nothing downloaded: the page goes up once, raw
+        (the span ``upload``; ``prepare_page_device`` makes its u16 codes
+        there); each U-Net runs all its tiles in one batch and leaves its
+        map there (a span ``unet`` each, timed on the device, its
+        ``tiles`` counted); the geometry runs there (the span
+        ``geometry``). Without a bar detector the system map gives the gap
+        projection. The buffer returned is good until the next page of
+        that shape (``page_stages``)."""
+        return self.page_stages(page)(page)
 
-        fg_img = system_probs > otsu_threshold(system_probs)
-        kernel = np.ones((15, 1), np.uint8)
-        fg_img = morphology_ex(fg_img.astype(np.uint8), "close", kernel)
+    def _bar_probs(self, x, system_probs):
+        """The map the gap projection reads: the bar detector's, else the
+        system map."""
+        if not self.bar_detector:
+            return system_probs
+        return self.bar_detector.predict_proba_device(x)
 
-        label_img, regions = labeled_regions(fg_img)
-        detected = []
-        for blob in regions:
-            if blob.area < MIN_AREA:
-                continue
-            bbox = self._shrink_bounding_box(label_img == blob.label,
-                                             blob.bbox)
-            min_row, min_col, max_row, max_col = bbox
-            min_row, max_row, min_col, max_col = snap_system_to_grid(
-                image[0, 0], min_row, max_row, min_col, max_col)
-            detected.append([[min_row, min_col], [min_row, max_col],
-                             [max_row, max_col], [max_row, min_col]])
-        detected = np.asarray(detected, float).reshape(-1, 4, 2)
-        # top-to-bottom reading order
-        if len(detected):
-            detected = detected[np.argsort(detected[:, 0, 0])]
-        return detected
+    def detect_systems(self, image, verbose: bool = False) -> np.ndarray:
+        """A page [H, W] or [1, 1, H, W] (u8 as scanned, or float32 in
+        [0, 1]) -> [N, 4, 2] corner arrays (TL, TR, BR, BL) of its staff
+        systems, top to bottom, by ``detect_systems_device``."""
+        if image.ndim == 4:
+            image = image[0, 0]
+        return geometry.systems_from_buffer(
+            self.detect_systems_device(image).cpu().numpy())
 
     def detect_systems_ly(self, image: np.ndarray, verbose: bool = False,
                           lines_per_system: int = 10) -> np.ndarray:
@@ -437,28 +480,6 @@ class OpticalMusicRecognizer:
         if return_labels:
             return centroids, label_img
         return centroids
-
-    @staticmethod
-    def _shrink_bounding_box(fg_img: np.ndarray, bbox, density: float = 0.9):
-        """Shrink a bbox until its border rows/cols are mostly foreground
-        (omr.py:649-672)."""
-        min_row, min_col, max_row, max_col = bbox
-        max_row = min(max_row, fg_img.shape[0] - 1)
-        max_col = min(max_col, fg_img.shape[1] - 1)
-        min_row, min_col = max(min_row, 0), max(min_col, 0)
-        while (min_row < max_row
-               and np.mean(fg_img[min_row, min_col:max_col]) < density):
-            min_row += 1
-        while (max_row > min_row
-               and np.mean(fg_img[max_row, min_col:max_col]) < density):
-            max_row -= 1
-        while (min_col < max_col
-               and np.mean(fg_img[min_row:max_row, min_col]) < density):
-            min_col += 1
-        while (max_col > min_col
-               and np.mean(fg_img[min_row:max_row, max_col]) < density):
-            max_col -= 1
-        return min_row, min_col, max_row, max_col
 
     @staticmethod
     def _bars_by_systems(page_bars: np.ndarray, page_systems: np.ndarray):

@@ -33,6 +33,14 @@ equal the ``raw`` wires' bit for bit):
   (w_budget), lo bytes in pairs (u16 only)]`` and decoded on the host; a
   map whose words overflow the budget downloads its raw codes, which stay
   on the device. ``"raw"`` downloads the codes.
+
+The device path (``prepare_page_device``, ``predict_proba_device``; the
+system detector's geometry on the device, ``detectors.OpticalMusicRecognizer
+.detect_systems_device``) takes neither wire: the page goes up as it is (a
+u8 scan one byte a pixel, a float page four; ``prepare_image`` and the u16
+codes are worked out on the device in the host's float32 steps, so a page
+with 255 in it becomes codes ``257 x byte``) and the maps stay where they
+are made.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 from audio_sheet_retrieval_tpu_torch import assets
 from audio_sheet_retrieval_tpu_torch.models import unet
 from audio_sheet_retrieval_tpu_torch.ops import rans
+from audio_sheet_retrieval_tpu_torch.utils import profiling
 
 _U16 = 65535.0
 # the JAX package's (1.0 / _U16) as the float32 its multiply uses
@@ -65,6 +74,22 @@ def prepare_image(img: np.ndarray) -> np.ndarray:
 def _quantize_page(img_01: np.ndarray) -> np.ndarray:
     """[0, 1] float page -> u16 wire codes."""
     return np.round(np.clip(img_01, 0.0, 1.0) * _U16).astype(np.uint16)
+
+
+def prepare_page_device(page: torch.Tensor):
+    """A page on the device, u8 as scanned or float in [0, 1] as
+    ``prepare_image`` gives it -> (the [0, 1] page, the U-Net input: its
+    u16 codes times the float32 1 / 65535), both float32 [h, w] there, in
+    the host path's float32 steps. A u8 page is ``prepare_image``'d here
+    (the division by its maximum is by a tensor: a division by a Python
+    number on the card multiplies by its reciprocal); a float page is
+    taken as it is, as ``_quantize_page`` takes it."""
+    x = page.to(torch.float32)
+    if page.dtype == torch.uint8:
+        mx = x.amax()
+        x = x / torch.where(mx == 0, torch.ones_like(mx), mx)
+    codes = torch.round(torch.clamp(x, 0.0, 1.0) * _U16)
+    return x, codes * _INV_U16
 
 
 def _check_wire(name: str, wire: str) -> None:
@@ -258,6 +283,7 @@ class SegmentationNetwork:
                 self._map_recipe[0], np.uint16).view(np.int16)).to(
                     self.device)
         self.map_overflows = 0
+        self._ham2d = None    # the blend's window, uploaded once
 
     @classmethod
     def load(cls, path: str, input_shape: Tuple[int, int] = (512, 512),
@@ -342,24 +368,54 @@ class SegmentationNetwork:
             * _INV_U16
         return canvas
 
-    def _sliding(self, img: np.ndarray, overlap: float) -> np.ndarray:
-        h, w = img.shape
+    def predict_proba_device(self, x: torch.Tensor, overlap: float = 0.5
+                             ) -> torch.Tensor:
+        """The U-Net input of one page on the device (``prepare_page_device``'s
+        second, float32 [h, w]) -> its probability map there, the codes
+        over ``2^map_bits - 1`` as ``predict_proba`` makes them, float32:
+        the sliding path's tiles in one batch and the blend in the JAX
+        tile order, nothing downloaded. Notes the page's ``tiles`` on the
+        open span."""
+        h, w = x.shape
+        if (h, w) == self.input_shape:
+            profiling.note("tiles", 1)
+            codes = self._device_codes(self.net(x[None, None]))[0]
+        else:
+            pad, origins = self.tile_origins(h, w, overlap)
+            top, bottom, left, right = pad
+            canvas = torch.zeros((h + top + bottom, w + left + right),
+                                 dtype=torch.float32, device=self.device)
+            canvas[top:top + h, left:left + w] = x
+            profiling.note("tiles", len(origins))
+            codes = self._blend_codes(canvas, h, w, pad, origins)
+        return codes.to(torch.float32) / torch.full(
+            (), self._maxcode, dtype=torch.float32, device=self.device)
+
+    def _blend_codes(self, page: torch.Tensor, h: int, w: int, pad,
+                     origins) -> torch.Tensor:
+        """The tile canvas on the device -> the blended map's codes
+        there, cropped to the [h, w] page."""
         sh, sw = self.input_shape
-        pad, origins = self.tile_origins(h, w, overlap)
         top, _, left, _ = pad
-        page = self._canvas(img, pad)
         tiles = torch.stack([page[r:r + sh, c:c + sw] for r, c in origins])
         probs = self.net(tiles[:, None])                  # [T, sh, sw]
-        ham2d = torch.from_numpy(np.sqrt(np.outer(
-            np.hamming(sh), np.hamming(sw))).astype(np.float32)).to(
-                self.device)
+        if self._ham2d is None:
+            self._ham2d = torch.from_numpy(np.sqrt(np.outer(
+                np.hamming(sh), np.hamming(sw))).astype(np.float32)).to(
+                    self.device)
+        ham2d = self._ham2d
         weighted = probs * ham2d[None]
         R = torch.zeros(page.shape, dtype=torch.float32, device=self.device)
         V = torch.zeros_like(R)
         for i, (r, c) in enumerate(origins):
             R[r:r + sh, c:c + sw] += weighted[i]
             V[r:r + sh, c:c + sw] += ham2d
-        codes = self._device_codes((R / V)[top:top + h, left:left + w])
+        return self._device_codes((R / V)[top:top + h, left:left + w])
+
+    def _sliding(self, img: np.ndarray, overlap: float) -> np.ndarray:
+        h, w = img.shape
+        pad, origins = self.tile_origins(h, w, overlap)
+        codes = self._blend_codes(self._canvas(img, pad), h, w, pad, origins)
         if self.map_wire == "raw":
             return self._download(codes)
         freqs, budget_bpx, pad_sym = self._map_recipe

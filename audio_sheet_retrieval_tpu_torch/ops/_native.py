@@ -61,6 +61,18 @@ SIGNATURES: Dict[str, Dict[str, Tuple[list, type]]] = {
         "dtw_cell_probe": ([_I, _P, _P], _I),
         "dtw_walk_probe": ([_I, _P, _P], _I),
     },
+    "omr_geometry": {
+        # mask, h, w, labels, stats, stream
+        "omr_label": ([_P, _I, _I, _P, _P, _P], _I),
+        # x, rows, n, ld, out, stream
+        "omr_row_sums": ([_P, _I, _I, _I, _P, _P], _I),
+        # x, h, w, r0, r1, slots, out, stream
+        "omr_col_means": ([_P, _I, _I, _P, _P, _I, _P, _P], _I),
+        # in, out, lines, len, line_stride, step, stream
+        "omr_box3": ([_P, _P, _I, _I, _I, _I, _P], _I),
+        # x, n, lohi, hist, out, stream
+        "omr_otsu": ([_P, ctypes.c_longlong, _P, _P, _P, _P], _I),
+    },
     "rans": {
         # freqs, states, words, P, S, W, n, K, g, threads, ring_words,
         # chunk, smem_bytes, out, stream

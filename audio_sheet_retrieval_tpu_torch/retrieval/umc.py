@@ -7,6 +7,12 @@ system to a SYSTEM_HEIGHT strip, concatenate across pages, and skip pieces
 whose system detection fails. Also the data-prep resize of
 reference scripts/prepare_umc_data.py:17-85 (scans to width 835). Pages are
 read and resized without OpenCV (``utils.image_io``).
+
+``make_page_query`` is the sheet -> audio server's page path
+(umc_s2a_server.py): a scanned page -> its systems, found on the device
+(``OpticalMusicRecognizer.detect_systems_device``) -> ``unroll_page`` on
+the host's copy of the page -> ``retrieval.gallery.make_fused_sheet_query``
+over the raw strip.
 """
 
 from __future__ import annotations
@@ -65,6 +71,45 @@ def make_omr(omr_model_dir: str = DEFAULT_OMR_DIR, *, map_bits: int = 16,
         map_kind="bar", device=device)
     return OpticalMusicRecognizer(system_detector=system_net,
                                   bar_detector=bar_net)
+
+
+def make_page_query(omr, params, cfg, gallery, n_pieces: int, *,
+                    n_candidates: int = 25, windows: int = 100,
+                    system_height: int = SYSTEM_HEIGHT):
+    """A scanned u8 page -> (per-performance vote counts [n_pieces], int64
+    on the gallery's device; the page's systems [N, 4, 2]), the span
+    ``page``. The page goes up once, raw; both U-Nets and the geometry run
+    on the device and only the boxes come down (the span ``strip``, with
+    the unroll into a ``system_height`` strip of the host's page);
+    ``windows`` windows evenly over the strip go through the fused sheet
+    query (raw coding), ``n_candidates`` nearest rows each. A page with no
+    system raises ``RuntimeError``."""
+    from audio_sheet_retrieval_tpu_torch.omr import geometry
+    from audio_sheet_retrieval_tpu_torch.ops.windows import linspace_starts
+    from audio_sheet_retrieval_tpu_torch.retrieval.gallery import (
+        make_fused_sheet_query,
+    )
+    from audio_sheet_retrieval_tpu_torch.utils import profiling
+
+    sheet = make_fused_sheet_query(params, cfg, gallery, n_pieces,
+                                   n_candidates=n_candidates, coding="raw")
+    sheet_w = cfg.input_shape_1[2]
+
+    def query(page: np.ndarray):
+        with profiling.span("page"):
+            boxes = omr.detect_systems_device(page)
+            with profiling.span("strip"):
+                systems = geometry.systems_from_buffer(boxes.cpu().numpy())
+                profiling.note("systems", len(systems))
+                strip = unroll_page(page, systems, system_height)
+                if strip.shape[1] < sheet_w:
+                    raise RuntimeError(
+                        f"{len(systems)} systems found, a strip of "
+                        f"{strip.shape[1]} px")
+                starts = linspace_starts(strip.shape[1], sheet_w, windows)
+            return sheet(strip, starts), systems
+
+    return query
 
 
 def prepare_scan(img: np.ndarray, target_width: int = 835) -> np.ndarray:

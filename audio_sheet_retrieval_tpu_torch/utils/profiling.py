@@ -28,6 +28,14 @@ profiler's Chrome trace, or until the next profiler session starts and
 drops them. Inside ``trace`` a span also opens a ``record_function``
 range, so the trace file shows it beside the kernels; other sessions do
 without that range and its cost.
+
+The OMR page path (``retrieval/umc.py::make_page_query``) adds the root
+``page`` and inside it ``unet`` (one U-Net's tiles, blend and codes),
+``geometry`` (the system boxes on the device) and ``strip`` (the boxes'
+download and the unroll), beside ``upload`` and the sheet query's own
+stages. A span may carry counts (``note``: a page's ``tiles`` in each
+``unet``, its ``systems`` in ``strip``) and, given a CUDA ``device``, the
+device time between two CUDA events recorded at its ends (``unet``).
 """
 
 from __future__ import annotations
@@ -75,10 +83,13 @@ _autograd_profiler._run_on_profiler_start = _on_profiler_start
 
 
 class _Span:
-    __slots__ = ("name", "id", "parent", "root", "start", "range")
+    __slots__ = ("name", "id", "parent", "root", "start", "range", "counts",
+                 "device", "events")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, device=None):
         self.name = name
+        self.counts = None
+        self.device = device
 
     def __enter__(self):
         local = _SPANS.local
@@ -91,6 +102,11 @@ class _Span:
         else:
             self.parent, self.root = None, self.id
         stack.append(self)
+        self.events = None
+        if self.device is not None:
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record(torch.cuda.current_stream(self.device))
         self.range = None
         if _SPANS.ranges:
             self.range = _autograd_profiler.record_function(self.name)
@@ -99,22 +115,41 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record(torch.cuda.current_stream(self.device))
         end = time.time_ns()
         if self.range is not None:
             self.range.__exit__(*exc)
         _SPANS.local.stack.pop()
         _SPANS.done.append((self.start, end, self.id, self.parent,
-                            self.root, self.name))
+                            self.root, self.name, self.counts, self.events))
         return False
 
 
-def span(name: str):
+def span(name: str, device=None):
     """A context manager that records the block as the span ``name``
     while a ``torch.profiler`` session runs; otherwise one shared no-op
-    context."""
+    context. With a CUDA ``device`` the span also times its block on that
+    device's current stream (two CUDA events)."""
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
-    return _Span(name)
+    if device is not None and torch.device(device).type != "cuda":
+        device = None
+    return _Span(name, device)
+
+
+def note(key: str, value) -> None:
+    """Add ``value`` to the count ``key`` of the innermost open span of
+    this thread; nothing while no span is recorded."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = getattr(_SPANS.local, "stack", None)
+    if not stack:
+        return
+    top = stack[-1]
+    if top.counts is None:
+        top.counts = {}
+    top.counts[key] = top.counts.get(key, 0) + value
 
 
 def trace_base_ns() -> int:
@@ -134,13 +169,23 @@ def take_spans(base_ns: Optional[int] = None) -> List[dict]:
     Each is a dict: ``name``, ``id``, ``parent`` (None for a root),
     ``root`` (its own id for a root), and ``ts_us`` and
     ``dur_us`` on a Chrome trace's clock: Unix µs less ``base_ns``
-    (default ``trace_base_ns()``)."""
+    (default ``trace_base_ns()``); ``counts`` where the span has any
+    (``note``), ``device_us`` where it was timed on a device (waits for
+    its end event)."""
     done, _SPANS.done = _SPANS.done, []
     base = trace_base_ns() if base_ns is None else base_ns
-    return [dict(name=name, id=i, parent=parent, root=root,
+    out = []
+    for start, end, i, parent, root, name, counts, events in sorted(
+            done, key=lambda s: s[0]):
+        s = dict(name=name, id=i, parent=parent, root=root,
                  ts_us=(start - base) / 1e3, dur_us=(end - start) / 1e3)
-            for start, end, i, parent, root, name in sorted(
-                done, key=lambda s: s[0])]
+        if counts:
+            s["counts"] = dict(counts)
+        if events is not None:
+            events[1].synchronize()
+            s["device_us"] = events[0].elapsed_time(events[1]) * 1e3
+        out.append(s)
+    return out
 
 
 @contextlib.contextmanager

@@ -3436,6 +3436,96 @@ def quiet(fn):
     return res, out.getvalue()
 
 
+def omr_device_geometry(torch, nets, page: np.ndarray, golden) -> dict:
+    """15f. The system detector's geometry on the card
+    (``omr/geometry.py``): the tutorial page through the device path (the
+    page up raw, both maps left on the card, only the boxes down) gives
+    the JAX package's systems (the golden's) as a u8 scan and as a float
+    page, eagerly at a shape's first page and as CUDA graphs after, and
+    so do its rows 0:420 between them (a second page height); each kernel
+    of ``csrc/omr_geometry.cu`` equals its plain version (numpy / scipy,
+    the same function on CPU tensors) bit for bit: the labels of the
+    page's closed foreground and of seeded masks (blobs over and under
+    50,000 px, touching the edges, speckle), the pairwise row sums and
+    the 3-tap blurs of the page, the column means over every slot range
+    (empty and reversed ones too), the Otsu thresholds of both maps; and
+    the device geometry's time a page (CUDA events)."""
+    from audio_sheet_retrieval_tpu_torch.omr import detectors, geometry
+    from audio_sheet_retrieval_tpu_torch.omr.inference import (
+        prepare_image,
+        prepare_page_device,
+    )
+
+    omr = detectors.OpticalMusicRecognizer(system_detector=nets["system"],
+                                           bar_detector=nets["bar"])
+    crop = page[:420]
+    runs = [(page, "full"), (page, "full"), (crop, "crop"), (page, "full"),
+            (prepare_image(page), "full"), (prepare_image(page), "full"),
+            (crop, "crop")]
+    graphed = []
+    for p, key in runs:
+        found = omr.detect_systems(p)
+        assert np.array_equal(found, golden[key + "_systems"]), \
+            (key, p.dtype, found)
+        stages = omr._stages[(p.shape, p.dtype == np.uint8)]
+        graphed.append(stages.graphs is not None)
+    # captured at a shape's second page; two shapes kept, so the crop's
+    # stages were let go for the float page's
+    assert graphed == [False, True, False, True, False, True, False], \
+        graphed
+    cuda = torch.device(OMR_DEVICE)
+    image, x = prepare_page_device(torch.from_numpy(page).to(cuda))
+    assert np.array_equal(image.cpu().numpy(), prepare_image(page))
+    sys_p = nets["system"].predict_proba_device(x)
+    bar_p = nets["bar"].predict_proba_device(x)
+    checked, failed = {}, []
+
+    def same(name, fn, *args):
+        got = fn(*[a.to(cuda) if torch.is_tensor(a) else a for a in args])
+        want = fn(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+        ok = all(np.array_equal(g.cpu().numpy(), w.numpy(), equal_nan=True)
+                 for g, w in zip(*[(x,) if torch.is_tensor(x) else x
+                                   for x in (got, want)]))
+        checked[name] = checked.get(name, 0) + 1
+        if not ok:
+            failed.append(name)
+
+    gen = np.random.default_rng(15)
+    fg = geometry.close_rows(sys_p > geometry.otsu_threshold(sys_p).to(
+        torch.float32))
+    masks = [fg]
+    for density in (0.05, 0.45, 0.6):
+        masks.append(torch.from_numpy(gen.random(page.shape) < density))
+    big = np.zeros(page.shape, bool)
+    big[0:300, 0:400] = True             # over 50,000 px, at two edges
+    big[500:560, 200:835] = True         # at the right edge
+    big[700:720, 100:200] = True         # under 50,000 px
+    big[900:1181, 600:835] = True        # the bottom right corner
+    masks.append(torch.from_numpy(big))
+    for m in masks:
+        same("omr_label", geometry.label_components, m)
+    img = 1.0 - image
+    for arr in (bar_p, sys_p, img, geometry.box3(img, 1)):
+        same("omr_row_sums", geometry.row_sums, arr)
+    for axis in (0, 1):
+        same("omr_box3", geometry.box3, img, axis)
+    h = page.shape[0]
+    r0 = torch.tensor([0, 116, 300, 500, 1000, 1180, 90], dtype=torch.int64)
+    r1 = torch.tensor([h, 214, 300, 420, 1181, 1181, 1300],
+                      dtype=torch.int64)
+    same("omr_col_means", geometry.col_means, geometry.box3(img, 0), r0, r1)
+    for arr in (sys_p, bar_p, geometry.row_sums(bar_p)):
+        same("omr_otsu", geometry.otsu_threshold, arr)
+    assert not failed, failed
+    ms = cuda_ms(lambda: geometry.detect_systems(sys_p, bar_p, image),
+                 iters=20, warmup=3)
+    page_ms = cuda_ms(lambda: omr.detect_systems_device(page).cpu(),
+                      iters=10, warmup=2)
+    return {"systems": len(found), "equal_to_golden": len(runs),
+            "kernel_checks": checked, "geometry_ms": ms,
+            "page_to_boxes_ms": page_ms}
+
+
 def phase_omr(torch, ctx):
     """15. OMR on the card: the three vendored U-Nets on the tutorial page
     against the JAX package's golden (f32 highest and high, bf16 under
@@ -3619,9 +3709,14 @@ def phase_omr(torch, ctx):
             assert run["yaml_read_back"] == run["ranks"], (key, run)
         assert n_resized == 2 and all(prepared), (n_resized, prepared)
     assert launches["topk_gallery"] > 0, "the UMC servers ran no top-k"
-    # the page and map wires of the tutorial's and the UMC servers' nets
-    assert launches["rans_decode"] > 0 and launches["rans_encode"] > 0, \
-        "phase 15 ran no rANS kernel"
+    # the tutorial's and the UMC servers' systems take the device path,
+    # which codes nothing on the host (phase 18 holds the OMR wires)
+    assert launches["rans_decode"] == 0 and launches["rans_encode"] == 0, \
+        "phase 15 coded a page or map on the host"
+
+    # f. the system geometry on the card, and its kernels
+    geo = omr_device_geometry(torch, nets, page, golden)
+    emit("omr", check="f. device geometry", **geo)
 
     # e. times on the card, at 15 tiles a page
     tree = nets["system"].params.to_numpy()

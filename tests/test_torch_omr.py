@@ -38,6 +38,7 @@ from audio_sheet_retrieval_tpu import assets as jassets
 from audio_sheet_retrieval_tpu.omr import detectors as jdet
 from audio_sheet_retrieval_tpu.omr import inference as jinf
 from audio_sheet_retrieval_tpu_torch.omr import detectors as tdet
+from audio_sheet_retrieval_tpu_torch.omr import geometry as tgeo
 from audio_sheet_retrieval_tpu_torch.omr import inference as tinf
 from audio_sheet_retrieval_tpu_torch.utils.image_io import imread_gray
 import torch_port_helpers  # noqa: F401  (one torch thread a process)
@@ -454,12 +455,17 @@ def test_otsu_and_peaks_match_jax(crop_maps, kind):
 
 
 def test_snap_system_to_grid_matches_jax(crop, golden):
-    for sys_ in golden["crop_systems"]:
-        box = (int(sys_[0, 0]) + 3, int(sys_[2, 0]) - 2, int(sys_[0, 1]) + 4,
-               int(sys_[1, 1]) - 5)
-        for thresh in (10, 2):
-            assert tdet.snap_system_to_grid(crop, *box, thresh=thresh) == \
-                jdet.snap_system_to_grid(crop, *box, thresh=thresh)
+    """The device geometry's snap (``geometry.snap_boxes``, every box in
+    one call, at the system detector's reach) against the JAX package's
+    ``snap_system_to_grid``."""
+    boxes = [(int(s[0, 0]) + 3, int(s[0, 1]) + 4, int(s[2, 0]) - 2,
+              int(s[1, 1]) - 5) for s in golden["crop_systems"]]
+    got = tgeo.snap_boxes(torch.from_numpy(crop), torch.tensor(boxes))
+    for (r0, c0, r1, c1), snapped in zip(boxes, got.tolist()):
+        want = jdet.snap_system_to_grid(crop, r0, r1, c0, c1,
+                                        thresh=tgeo.SNAP_PX)
+        assert (snapped[0], snapped[2], snapped[1], snapped[3]) == want
+        assert want != (r0, r1, c0, c1)        # each box moved
 
 
 @pytest.mark.parametrize("width", [500, 501, 835, 836])
